@@ -1,0 +1,60 @@
+"""CSP-Darknet backbone with CBAM and SPP (NCHW), canonical serving path.
+
+Port of ``skyeye_tpu/models/backbone.py``: Focus + conv/2 + CSP(3d) -> conv/2 +
+CSP(9d) [P3/8] -> conv/2 + CSP(9d) + CBAM [P4/16] -> conv/2 + CSP(3d) + SPP
+[P5/32], with depth/width multipliers.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+from torch import nn
+
+from .attention import CBAM
+from .blocks import ConvBlock, CSPBlock, FocusBlock, SPPBlock
+
+
+def scaled_channels(x: float, width_multiple: float) -> int:
+    return max(round(x * width_multiple), 1)
+
+
+def scaled_depth(x: int, depth_multiple: float) -> int:
+    return max(round(x * depth_multiple), 1)
+
+
+def feature_channels(base_channels: int, width_multiple: float) -> List[int]:
+    """Actual [P3, P4, P5] channel counts emitted by the backbone."""
+    return [
+        scaled_channels(base_channels * 4, width_multiple),
+        scaled_channels(base_channels * 8, width_multiple),
+        scaled_channels(base_channels * 16, width_multiple),
+    ]
+
+
+class CSPDarknet(nn.Module):
+    """Four-stage CSP-Darknet emitting [P3 (/8), P4 (/16), P5 (/32)]."""
+
+    def __init__(self, base_channels: int = 64, depth_multiple: float = 1.0,
+                 width_multiple: float = 1.0, in_channels: int = 3):
+        super().__init__()
+        w, d = width_multiple, depth_multiple
+        c1, c2, c3, c4, c5 = (scaled_channels(base_channels * m, w) for m in (1, 2, 4, 8, 16))
+        self.stem = FocusBlock(in_channels, c1, kernel_size=3)
+        self.down1 = ConvBlock(c1, c2, 3, stride=2)
+        self.csp1 = CSPBlock(c2, c2, scaled_depth(3, d))
+        self.down2 = ConvBlock(c2, c3, 3, stride=2)
+        self.csp2 = CSPBlock(c3, c3, scaled_depth(9, d))
+        self.down3 = ConvBlock(c3, c4, 3, stride=2)
+        self.csp3 = CSPBlock(c4, c4, scaled_depth(9, d))
+        self.cbam3 = CBAM(c4)
+        self.down4 = ConvBlock(c4, c5, 3, stride=2)
+        self.csp4 = CSPBlock(c5, c5, scaled_depth(3, d))
+        self.spp4 = SPPBlock(c5, c5)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self.csp1(self.down1(self.stem(x)))
+        p3 = self.csp2(self.down2(x))
+        p4 = self.cbam3(self.csp3(self.down3(p3)))
+        p5 = self.spp4(self.csp4(self.down4(p4)))
+        return [p3, p4, p5]

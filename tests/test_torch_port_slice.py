@@ -1,0 +1,150 @@
+"""The port's serving slice end to end against the JAX package's.
+
+``skyeye_tpu_torch.SkyEyeDetector(device="cpu")`` and
+``skyeye_tpu.SkyEyeDetector(approx_topk=False)`` run on the same weights and
+the same BGR uint8 frames, of two shapes. Counts and classes must be equal, in
+keep order; boxes (pixels of the original frame) within 1e-2 px and scores
+within 1e-4, the float32 error of a small network's forward carried through
+decode and rescaling.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+import skyeye_tpu.models.detector as jdet
+from skyeye_tpu.api import SkyEyeDetector as JaxDetector
+from skyeye_tpu_torch import SkyEyeDetector
+from skyeye_tpu_torch.utils.checkpoint import from_jax_variables
+
+REPO = Path(__file__).resolve().parent.parent
+CFG = {"nc": 6, "base_channels": 16, "depth_multiple": 0.33, "width_multiple": 0.5,
+       "variant": "s"}
+
+
+def _variables(module, seed):
+    """Seeded numpy weights for every flax leaf (BN statistics too). The head's
+    obj/cls biases start where YOLOv5's initialisation puts them, so that the
+    detector proposes sparse boxes, as a trained one does, and not near-ties
+    at every cell, where float32 noise alone would decide the keep order."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    rng = np.random.RandomState(seed)
+    flat = {}
+    for path, v in traverse_util.flatten_dict(shapes, sep="/").items():
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf == "var":
+            flat[path] = rng.uniform(0.5, 1.5, v.shape)
+        elif leaf == "scale":
+            flat[path] = rng.uniform(0.8, 1.2, v.shape)
+        elif leaf == "kernel":
+            flat[path] = rng.normal(0, 1, v.shape) / np.sqrt(np.prod(v.shape[:-1]))
+        else:
+            flat[path] = rng.normal(0, 0.5, v.shape)
+    no = CFG["nc"] + 5
+    for level, stride in enumerate((8, 16, 32)):
+        bias = flat[f"params/head/pred{level}/bias"].reshape(3, no)
+        bias[:, 4] += np.log(8 / (640 / stride) ** 2)
+        bias[:, 5:] += np.log(0.6 / (CFG["nc"] - 0.99))
+    return {k: v.astype(np.float32) for k, v in flat.items()}
+
+
+@pytest.fixture(scope="module")
+def detectors():
+    module = jdet.SkyEyeDetectorModule(config=jdet.load_model_config(CFG))
+    flat = _variables(module, seed=5)
+    variables = traverse_util.unflatten_dict(
+        {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+    mp = pytest.MonkeyPatch()
+    # JaxDetector builds its module with create_detector; hand it these weights
+    mp.setattr(jdet, "create_detector", lambda *a, **k: (module, variables))
+    try:
+        ref = JaxDetector(cfg=CFG, img_size=128, approx_topk=False)
+    finally:
+        mp.undo()
+    port = SkyEyeDetector(CFG, state_dict=from_jax_variables(flat), img_size=128,
+                          device="cpu")
+    return ref, port
+
+
+def _frames():
+    rng = np.random.RandomState(0)
+    wide = [rng.randint(0, 256, (72, 128, 3), np.uint8) for _ in range(2)]
+    tall = [rng.randint(0, 256, (100, 60, 3), np.uint8)]
+    # smooth the noise so the detector sees structure, not only texture
+    return [np.clip(f.astype(np.int32) // 32 * 32 + 16, 0, 255).astype(np.uint8)
+            for f in wide + tall]
+
+
+@pytest.mark.parametrize("conf", [0.005, 0.001])
+def test_serving_matches_jax(detectors, conf):
+    ref, port = detectors
+    ref.conf_thres = port.conf_thres = conf
+    ref._executables.clear()  # the JAX pipeline bakes conf_thres into its executable
+    frames = _frames()
+    want = ref(frames)
+    got = port(frames)
+    assert len(got) == len(want) == len(frames)
+    assert sum(len(d) for d in got.xyxy) > 0
+    for g, w in zip(got.xyxy, want.xyxy):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g[:, 5], w[:, 5])
+        np.testing.assert_allclose(g[:, :4], w[:, :4], rtol=0, atol=1e-2)
+        np.testing.assert_allclose(g[:, 4], w[:, 4], rtol=0, atol=1e-4)
+    for g, w in zip(got.xywh, want.xywh):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-2)
+    got.print()
+
+
+def test_stage_hook_sees_each_stage_of_every_batch_in_order(detectors):
+    _, port = detectors
+    port.conf_thres = 0.001
+    frames = _frames()
+    want = port(frames)
+    seen = []
+    port.on_stage = seen.append
+    try:
+        got = port(frames)
+    finally:
+        port.on_stage = None
+    stages = ["host_prep", "host_to_device", "letterbox", "model", "decode", "nms",
+              "device_to_host", "rescale"]
+    assert seen == stages * 2  # one batch per frame shape
+    for g, w in zip(got.xyxy, want.xyxy):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_batch_buckets_match_jax():
+    for n in (0, 1, 5, 16, 23, 40):
+        assert SkyEyeDetector._batch_buckets(n) == JaxDetector._batch_buckets(n)
+
+
+def test_cuda_is_the_default_and_is_not_replaced_by_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SkyEyeDetector(CFG)
+
+
+def test_main_path_imports_no_jax():
+    """The port, its API and chip_smoke.py import none of jax, flax, skyeye_tpu,
+    yaml, cv2 or PIL."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import skyeye_tpu_torch, skyeye_tpu_torch.api, skyeye_tpu_torch.ops.nms_kernel\n"
+        "import chip_smoke\n"
+        "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
