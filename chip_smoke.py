@@ -6,9 +6,16 @@
 Phases, one JSON line each; a failed phase raises and the script exits non-zero:
 
   device   the card, its power limit, and the torch/CUDA versions; no CUDA -> exit 1
-  build    nvcc builds the NMS kernels (csrc/nms.cu) into a plain-C library
+  build    nvcc builds the three kernel libraries (csrc/nms.cu, attention.cu,
+           csp.cu) in parallel, each into a plain-C library
   kernels  K1 (batched greedy NMS) and K2 (single-image greedy NMS) against their
            plain PyTorch versions on the card, index for index, on seeded inputs
+  kernels_attention_csp
+           K4 (fused attention) against ``attention_reference`` at the serving
+           shape (64, 1600, 256), at ragged shapes down to one token and a
+           large-logit case; K3 (fused CSP) against ``csp_fused_plain`` at csp1's
+           serving shape (16, 320, 320, 64), nb 1, at nb 3 with ragged tiles and
+           at 12 channels
   serve    SkyEyeDetector("skyeye_s") at full width, seeded weights, float32 with
            TF32 off, serves 3 requests of 16 uint8 1080x1920 frames at 1280 px
            (conf 0.25, 0.001, 0.001; K1's launches counted over just these),
@@ -17,6 +24,21 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            against the same detector with the plain NMS put in, the kernels are
            timed on the inputs the serving path gave K1, and one request is
            split into its stages by the detector's ``on_stage`` hook
+  serve_transformer
+           SkyEyeDetector("skyeye_l_transformer") at full width and depth, the
+           same 3 requests (K4's and K1's launches counted over just these); its
+           logits held against the same model with ``attention_reference`` put
+           in, K1 against the plain NMS on the inputs the requests gave it, K4
+           timed on the inputs the requests gave it (beside the plain versions
+           and ``scaled_dot_product_attention``, timed as a yardstick only), and
+           one request split into its stages
+  serve_fused_csp
+           skyeye_s rebuilt in the fused-CSP serving mode (``fused_csp_detector``:
+           BN folded, csp1 on K3), the same 3 requests (K3's launches counted over
+           just these); its logits held against the canonical detector on the
+           folded weights; K3 timed on the input the requests gave it (beside its
+           plain version and the cuDNN bf16 canonical CSPBlock, as context); K3b,
+           the same kernel under the v1 name, called once on that input
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power-limit line,
 and, last, ``{"ok": true, "device": {...}}``. A watchdog ends a hung run with a
@@ -29,30 +51,33 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
 
 WATCHDOG_S = 900
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
+# tensor cores, bf16 dense on the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12
 # Operations per candidate and greedy step: the argmax compare, the IoU against
 # the winner (2 min, 2 max, 2 sub, 2 clamp, 1 mul, 2 add, 1 sub, 1 div) and
 # the suppression compare and select.
 OPS_PER_CANDIDATE_STEP = 17
 
 NMS_SOURCE = "skyeye_tpu_torch/csrc/nms.cu"
-KERNELS = {  # wrapper -> the TPU kernel it replaces: K1, K2
-    "batched_greedy_nms": "skyeye_tpu/ops/pallas/nms_kernel.py:220",
-    "greedy_nms": "skyeye_tpu/ops/pallas/nms_kernel.py:105",
+ATTENTION_SOURCE = "skyeye_tpu_torch/csrc/attention.cu"
+CSP_SOURCE = "skyeye_tpu_torch/csrc/csp.cu"
+KERNELS = {  # wrapper -> (id, the TPU kernel it replaces, its source here)
+    "batched_greedy_nms": ("K1", "skyeye_tpu/ops/pallas/nms_kernel.py:220", NMS_SOURCE),
+    "greedy_nms": ("K2", "skyeye_tpu/ops/pallas/nms_kernel.py:105", NMS_SOURCE),
+    "csp_fused_v2": ("K3", "skyeye_tpu/ops/pallas/csp_kernel.py:198", CSP_SOURCE),
+    "csp_fused": ("K3b", "skyeye_tpu/ops/pallas/csp_kernel.py:275", CSP_SOURCE),
+    "flash_attention": ("K4", "skyeye_tpu/ops/pallas/attention_kernel.py:74", ATTENTION_SOURCE),
 }
-NOT_PORTED = [  # the repo's other TPU kernels, still to port (ROADMAP.md Queue 2)
-    {"id": "K3", "fn": "skyeye_tpu/ops/pallas/csp_kernel.py:198 csp_fused_v2", "status": "to port"},
-    {"id": "K3b", "fn": "skyeye_tpu/ops/pallas/csp_kernel.py:275 csp_fused", "status": "to port"},
-    {"id": "K4", "fn": "skyeye_tpu/ops/pallas/attention_kernel.py:74 flash_attention",
-     "status": "to port"},
-]
+REQUESTS = [0.25, 0.001, 0.001]  # conf of the 3 requests each serving phase sends
 
 
 def emit(phase: str, **fields) -> None:
@@ -162,10 +187,8 @@ def phase_kernels(torch, nms_kernel):
             "K2_ms": cuda_ms(lambda: nms_kernel.greedy_nms(tb[0], ts[0], iou, md), 30),
         }
     emit("kernels", index_exact=True, cases=checked, median_ms_generated_inputs=times,
-         kernels=[{"id": "K1", "fn": KERNELS["batched_greedy_nms"], "status": "ported",
-                   "source": NMS_SOURCE},
-                  {"id": "K2", "fn": KERNELS["greedy_nms"], "status": "ported",
-                   "source": NMS_SOURCE}] + NOT_PORTED)
+         kernels=[{"id": kid, "fn": fn, "status": "ported", "source": src}
+                  for kid, fn, src in KERNELS.values()])
 
 
 def frames(seed: int, n: int = 16):
@@ -224,7 +247,7 @@ def phase_serve(torch, gpu_line):
 
     det = SkyEyeDetector("skyeye_s", img_size=1280, device="cuda", seed=0)
     batch = frames(seed=1)
-    requests = [0.25, 0.001, 0.001]
+    requests = REQUESTS
     det(batch)  # warm-up: cuDNN handles and workspaces
     torch.cuda.synchronize()
 
@@ -325,8 +348,7 @@ def phase_serve(torch, gpu_line):
     for s in summary:
         if s["max_abs_err"] != 0:
             fail(f"{s['name']} disagrees with its plain version on the main path's inputs")
-        s.update(route="cuda", source=NMS_SOURCE, replaces=KERNELS[s["name"]],
-                 library_ms=None)  # no core PyTorch call computes greedy NMS
+        s["library_ms"] = None  # no core PyTorch call computes greedy NMS
 
     emit("serve", model="skyeye_s", img_size=1280, batch=len(batch), frame=[1080, 1920],
          dtype="float32", tf32=False, conf=requests, ms_per_request=ms,
@@ -342,6 +364,310 @@ def phase_serve(torch, gpu_line):
     return summary
 
 
+def allclose_excess(got, ref, rtol: float, atol: float) -> float:
+    """max(|got - ref| - (atol + rtol |ref|)): <= 0 when every element is within."""
+    return float(((got - ref).abs() - (atol + rtol * ref.abs())).max())
+
+
+def csp_weights(torch, gen, c: int, h: int, c_out: int, nb: int):
+    """Seeded folded-CSP weights on the card, in the JAX layout, scaled as a folded
+    conv's (N(0, 1 / fan_in)); biases N(0, 0.25)."""
+    shapes = {"w_cv1": ((c, h), c), "b_cv1": ((h,), 16), "w_m1": ((nb, h, h), h),
+              "b_m1": ((nb, h), 16), "w_m2": ((nb, 3, 3, h, h), 9 * h), "b_m2": ((nb, h), 16),
+              "w_cv2": ((c, h), c), "b_cv2": ((h,), 16), "w_cv3": ((2 * h, c_out), 2 * h),
+              "b_cv3": ((c_out,), 16)}
+    return {name: torch.randn(shape, generator=gen, device="cuda") / fan_in ** 0.5
+            for name, (shape, fan_in) in shapes.items()}
+
+
+def phase_kernels_attention_csp(torch, attention_kernel, csp_kernel):
+    """K4 against ``attention_reference`` and K3/K3b against ``csp_fused_plain`` on
+    the card, on seeded inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(shape, sigma=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * sigma
+
+    attention = []
+    # (case, (B*heads, N, hd), sigma of q and k, rtol, atol): the tolerance of the
+    # Pallas kernel's tests; the large-logit case keeps its own test's
+    for case, shape, sigma, rtol, atol in (
+            ("serving_b64_n1600_hd256", (64, 1600, 256), 1.0, 2e-4, 2e-5),
+            ("b8_n400_hd64", (8, 400, 64), 1.0, 2e-4, 2e-5),
+            ("b4_n300_hd96", (4, 300, 96), 1.0, 2e-4, 2e-5),
+            ("b3_n37_hd40", (3, 37, 40), 1.0, 2e-4, 2e-5),  # one ragged tile
+            ("b2_n1_hd20", (2, 1, 20), 1.0, 2e-4, 2e-5),    # one token, the narrowest heads
+            ("large_logits_b1_n128_hd64", (1, 128, 64), 30.0, 1e-3, 1e-4)):
+        q, k, v = randn(shape, sigma), randn(shape, sigma), randn(shape)
+        got = attention_kernel.flash_attention(q, k, v)
+        ref = attention_kernel.attention_reference(q, k, v)
+        plain = attention_kernel.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        excess = allclose_excess(got, ref, rtol, atol)
+        if not bool(torch.isfinite(got).all()) or excess > 0:
+            fail(f"K4 disagrees with attention_reference on {case}: {excess} beyond "
+                 f"rtol {rtol}, atol {atol}")
+        attention.append({"case": case, "shape": list(shape), "rtol": rtol, "atol": atol,
+                          "max_abs_err_vs_reference": float((got - ref).abs().max()),
+                          "max_abs_err_vs_plain": float((got - plain).abs().max())})
+    del q, k, v, got, ref, plain
+
+    csp = []
+    # (case, (B, H, W, C), nb, tile_rows): csp1's serving shape; nb 3 with ragged
+    # tiles in both H (45 = 5 * 8 + 5) and W (37 = 32 + 5); and 12 channels, which
+    # the kernel loads in pairs rather than in eights
+    for case, (b, hh, ww, c), nb, tile_rows in (
+            ("serving_b16_320x320_c64_nb1", (16, 320, 320, 64), 1, csp_kernel.TILE_ROWS),
+            ("ragged_b2_45x37_c64_nb3", (2, 45, 37, 64), 3, 8),
+            ("narrow_b1_19x70_c12_nb2", (1, 19, 70, 12), 2, 5)):
+        weights = csp_weights(torch, gen, c, c // 2, c, nb)
+        x = randn((b, hh, ww, c)).to(torch.bfloat16)
+        got = csp_kernel.csp_fused_v2(x, weights, nb, tile_rows)
+        v1 = csp_kernel.csp_fused(x, weights, nb, tile_rows)
+        ref = csp_kernel.csp_fused_plain(x, weights, nb).float()
+        torch.cuda.synchronize()
+        err = float((got.float() - ref).abs().max())
+        limit = 0.02 * float(ref.abs().max()) + 1e-3
+        if not err <= limit:
+            fail(f"K3 disagrees with csp_fused_plain on {case}: {err} > {limit}")
+        if not torch.equal(got, v1):
+            fail(f"K3b (csp_fused) and K3 (csp_fused_v2) differ on {case}")
+        csp.append({"case": case, "shape": [b, hh, ww, c], "nb": nb, "tile_rows": tile_rows,
+                    "max_abs_err": err, "limit": limit, "max_abs_ref": float(ref.abs().max())})
+    emit("kernels_attention_csp", attention=attention, csp=csp)
+
+
+def phase_serve_transformer(torch, gpu_line):
+    """skyeye_l_transformer at full width: K4 and K1 on every request."""
+    import torch.nn.functional as F
+
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.models import attention as port_attention
+    from skyeye_tpu_torch.ops import attention_kernel, nms_kernel
+    from skyeye_tpu_torch.ops import nms as port_nms
+    from skyeye_tpu_torch.ops.letterbox import letterbox_batch
+
+    det = SkyEyeDetector("skyeye_l_transformer", img_size=1280, device="cuda", seed=0)
+    batch = frames(seed=1)
+    det(batch)  # warm-up: cuDNN handles and workspaces
+    torch.cuda.synchronize()
+
+    # -- the serving path, nothing patched: counts from 0 just before, read just after
+    nms_kernel.reset_launch_counts()
+    attention_kernel.reset_launch_counts()
+    served, ms = [], []
+    for conf in REQUESTS:
+        det.conf_thres = conf
+        t0 = time.perf_counter()
+        served.append(det(batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {**nms_kernel.LAUNCHES, **attention_kernel.LAUNCHES}
+    # ---------------------------------------------------------------------------
+
+    for name in ("flash_attention", "batched_greedy_nms"):
+        if launches[name] == 0:
+            fail(f"the transformer's serving path never launched {name}")
+    for r in served:
+        check_detections(r, batch[0].shape[:2], det.config.nc)
+
+    # -- what the requests hand K4 and K1, from an untimed rerun
+    real_flash, real_batched = port_attention.flash_attention, port_nms.greedy_nms_batched
+    k4_inputs, k1_inputs = [], {}
+
+    def record_flash(q, k, v):
+        k4_inputs[:] = [(q, k, v)]
+        return real_flash(q, k, v)
+
+    def record_nms(offset_boxes, scores, iou_thres, max_det):
+        k1_inputs[det.conf_thres] = (offset_boxes.contiguous(), scores.contiguous(),
+                                     iou_thres, max_det)
+        return real_batched(offset_boxes, scores, iou_thres, max_det)
+
+    with mock.patch.object(port_attention, "flash_attention", record_flash), \
+            mock.patch.object(port_nms, "greedy_nms_batched", record_nms):
+        for conf in sorted(set(REQUESTS)):
+            det.conf_thres = conf
+            det(batch)
+
+    # -- K1 against the plain NMS on those inputs, index for index
+    kept = {}
+    for conf, (boxes, scores, iou, md) in k1_inputs.items():
+        idx, valid = nms_kernel.batched_greedy_nms(boxes, scores, iou, md)
+        p_idx, p_valid = nms_kernel.batched_greedy_nms_plain(boxes, scores, iou, md)
+        if not (torch.equal(idx, p_idx) and torch.equal(valid, p_valid)):
+            fail(f"K1 disagrees with the plain NMS on the transformer's inputs at conf {conf}")
+        kept[str(conf)] = valid.sum(dim=1).tolist()
+
+    # -- the logits with K4 against the same model with attention_reference put in
+    with torch.inference_mode():
+        x = torch.from_numpy(np.stack([f[:, :, ::-1] for f in batch])).cuda()
+        x = letterbox_batch(x, (1280, 1280)).permute(0, 3, 1, 2) / 255.0
+        got = det.model(x)
+        with mock.patch.object(port_attention, "flash_attention",
+                               attention_kernel.attention_reference):
+            want = det.model(x)
+    max_logit = max(float(w.abs().max()) for w in want)
+    logit_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(bool(torch.isfinite(g).all()) for g in got) or logit_err > 1e-3 * max_logit:
+        fail(f"logits with K4 differ from attention_reference's by {logit_err} "
+             f"(max |logit| {max_logit})")
+    del x, got, want
+
+    # -- K4 timed on the inputs the requests gave it
+    q, k, v = k4_inputs[0]
+    out = attention_kernel.flash_attention(q, k, v)
+    ref = attention_kernel.attention_reference(q, k, v)
+    sdpa = F.scaled_dot_product_attention(q, k, v)
+    b, n, hd = q.shape
+    nbytes = 4 * q.numel() * 4  # q, k, v read once, o written once
+    ops = 4.0 * b * n * n * hd  # two products of 2 N^2 hd each
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    k4 = dict(
+        name="flash_attention", path="serve_transformer",
+        launches=launches["flash_attention"],
+        max_abs_err=float((out - ref).abs().max()),
+        ms=cuda_ms(lambda: attention_kernel.flash_attention(q, k, v), 10),
+        plain_ms=cuda_ms(lambda: attention_kernel.flash_attention_plain(q, k, v), 5),
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10),
+        shape=[b, n, hd])
+    k4_reference_ms = cuda_ms(lambda: attention_kernel.attention_reference(q, k, v), 5)
+    sdpa_err = float((sdpa - ref).abs().max())
+    del q, k, v, out, ref, sdpa, k4_inputs[:], k1_inputs
+
+    emit("serve_transformer", model="skyeye_l_transformer", img_size=1280, batch=len(batch),
+         frame=[1080, 1920], dtype="float32", tf32=False, conf=REQUESTS,
+         ms_per_request=ms, images_per_s=[len(batch) / (t / 1e3) for t in ms],
+         detections_per_image=[[len(d) for d in r.xyxy] for r in served],
+         launches=launches,
+         launches_per_request={n_: c / len(REQUESTS) for n_, c in launches.items()},
+         k1_kept_on_rerun=kept, logit_max_abs_err=logit_err, max_abs_logit=max_logit,
+         k4_shape=k4["shape"], k4_ms=k4["ms"], k4_reference_ms=k4_reference_ms,
+         k4_plain_ms=k4["plain_ms"], sdpa_ms=k4["library_ms"], sdpa_max_abs_err=sdpa_err,
+         card=gpu_line, stage_ms={"0.001": stage_ms(torch, det, batch, 0.001)})
+    del det
+    torch.cuda.empty_cache()
+    return [k4]
+
+
+def phase_serve_fused_csp(torch, gpu_line):
+    """skyeye_s in the fused-CSP serving mode: K3 on every request."""
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.models.blocks import CSPBlock
+    from skyeye_tpu_torch.models.detector import SkyEyeDetectorModule, fused_csp_detector
+    from skyeye_tpu_torch.ops import csp_kernel, fused_csp
+    from skyeye_tpu_torch.ops.letterbox import letterbox_batch
+    from skyeye_tpu_torch.utils.checkpoint import fuse_conv_bn
+
+    det = SkyEyeDetector("skyeye_s", img_size=1280, device="cuda", seed=0)
+    folded = fuse_conv_bn(det.model.state_dict())
+    canonical = SkyEyeDetectorModule(det.config)
+    canonical.load_state_dict(folded, strict=True)
+    canonical = canonical.eval().cuda()
+    det.model = fused_csp_detector(det.model)
+    batch = frames(seed=1)
+    det(batch)  # warm-up
+    torch.cuda.synchronize()
+
+    # -- the serving path, nothing patched: counts from 0 just before, read just after
+    csp_kernel.reset_launch_counts()
+    served, ms = [], []
+    for conf in REQUESTS:
+        det.conf_thres = conf
+        t0 = time.perf_counter()
+        served.append(det(batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(csp_kernel.LAUNCHES)
+    # ---------------------------------------------------------------------------
+
+    if launches["csp_fused_v2"] == 0:
+        fail("the fused-CSP serving path never launched csp_fused_v2")
+    for r in served:
+        check_detections(r, batch[0].shape[:2], det.config.nc)
+
+    # -- logits against the canonical detector on the folded weights; csp1's input
+    real = fused_csp.csp_fused_v2
+    captured = []
+
+    def record(x, weights, num_blocks, tile_rows):
+        captured[:] = [(x, weights, num_blocks, tile_rows)]
+        return real(x, weights, num_blocks, tile_rows)
+
+    with torch.inference_mode():
+        x = torch.from_numpy(np.stack([f[:, :, ::-1] for f in batch])).cuda()
+        x = letterbox_batch(x, (1280, 1280)).permute(0, 3, 1, 2) / 255.0
+        with mock.patch.object(fused_csp, "csp_fused_v2", record):
+            got = det.model(x)
+        want = canonical(x)
+    levels = []
+    for g, w in zip(got, want):
+        err, limit = float((g - w).abs().max()), 0.05 * float(w.abs().max()) + 1e-2
+        if not bool(torch.isfinite(g).all()) or err > limit:
+            fail(f"fused-CSP logits differ from the canonical folded detector's: {err} > {limit}")
+        levels.append({"max_abs_err": err, "limit": limit})
+    del x, got, want
+
+    # -- K3 and K3b on csp1's serving input, against the plain version
+    xh, weights, nb, tile_rows = captured[0]
+    with torch.inference_mode():
+        out = csp_kernel.csp_fused_v2(xh, weights, nb, tile_rows)
+        ref = csp_kernel.csp_fused_plain(xh, weights, nb)
+        torch.cuda.synchronize()
+        csp_kernel.reset_launch_counts()
+        v1 = csp_kernel.csp_fused(xh, weights, nb, tile_rows)
+        torch.cuda.synchronize()
+        direct_launches = dict(csp_kernel.LAUNCHES)
+        if not torch.equal(v1, out):
+            fail("K3b (csp_fused) and K3 (csp_fused_v2) differ on csp1's serving input")
+        err = float((out.float() - ref.float()).abs().max())
+        if err > 0.02 * float(ref.float().abs().max()) + 1e-3:
+            fail(f"K3 disagrees with csp_fused_plain on csp1's serving input by {err}")
+
+        b, hh, ww, c = xh.shape
+        h, c_out = weights["w_cv1"].shape[1], weights["w_cv3"].shape[1]
+        nbytes = (xh.numel() + out.numel() + sum(w.numel() for w in weights.values())) * 2
+        ops = 2.0 * b * hh * ww * (2 * c * h + nb * 10 * h * h + 2 * h * c_out)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_BF16_OPS_S * 1e3
+        bound = dict(bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        plain_ms = cuda_ms(lambda: csp_kernel.csp_fused_plain(xh, weights, nb), 5)
+        summary = [
+            dict(name="csp_fused_v2", path="serve_fused_csp", launches=launches["csp_fused_v2"],
+                 max_abs_err=err, plain_ms=plain_ms, library_ms=None, shape=[b, hh, ww, c],
+                 ms=cuda_ms(lambda: csp_kernel.csp_fused_v2(xh, weights, nb, tile_rows), 20),
+                 **bound),
+            dict(name="csp_fused", path="direct call on csp1's serving input",
+                 launches=direct_launches["csp_fused"], max_abs_err=err, plain_ms=plain_ms,
+                 library_ms=None, shape=[b, hh, ww, c],
+                 ms=cuda_ms(lambda: csp_kernel.csp_fused(xh, weights, nb, tile_rows), 20),
+                 **bound),
+        ]
+        # context only, not a port: the canonical CSPBlock on cuDNN, bf16, channels_last,
+        # on the same folded weights and input
+        block = CSPBlock(c, c_out, nb)
+        block.load_state_dict({k[len("backbone.csp1."):]: v for k, v in folded.items()
+                               if k.startswith("backbone.csp1.")}, strict=True)
+        block = block.eval().cuda().to(torch.bfloat16).to(memory_format=torch.channels_last)
+        x_nchw = xh.permute(0, 3, 1, 2)  # NCHW view of the NHWC input: channels_last
+        cudnn_ms = cuda_ms(lambda: block(x_nchw), 20)
+
+    emit("serve_fused_csp", model="skyeye_s", mode="fused_csp", img_size=1280,
+         batch=len(batch), frame=[1080, 1920], conf=REQUESTS, ms_per_request=ms,
+         images_per_s=[len(batch) / (t / 1e3) for t in ms],
+         detections_per_image=[[len(d) for d in r.xyxy] for r in served],
+         launches=launches, launches_per_request={n_: c_ / len(REQUESTS)
+                                                  for n_, c_ in launches.items()},
+         direct_call_launches=direct_launches, logits_vs_canonical_folded=levels,
+         k3_shape=[b, hh, ww, c], k3_ms=summary[0]["ms"], k3b_ms=summary[1]["ms"],
+         k3_plain_ms=plain_ms, cudnn_bf16_csp_block_ms=cudnn_ms, card=gpu_line,
+         stage_ms={"0.001": stage_ms(torch, det, batch, 0.001)})
+    for s in summary:
+        s["cudnn_bf16_csp_block_ms"] = cudnn_ms
+    del det, canonical, block, captured[:]
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -350,25 +676,40 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
-    from skyeye_tpu_torch.ops import nms_kernel  # fails where the port is absent
+    # fails where the port is absent
+    from skyeye_tpu_torch.ops import attention_kernel, csp_kernel, nms_kernel
 
     gpu_line = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     emit("device", name=name, nvidia_smi=gpu_line, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
 
+    # one nvcc per source, all started together
+    libraries = {"nms.cu": nms_kernel.nms_library,
+                 "attention.cu": attention_kernel.attention_library,
+                 "csp.cu": csp_kernel.csp_library}
     t0 = time.perf_counter()
-    built = nms_kernel.nms_library()
-    emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=built.seconds,
-         library=built.path.name,
-         ptxas=[ln.strip() for ln in built.ptxas.splitlines()
-                if "registers" in ln or "spill" in ln])
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        futures = {src: pool.submit(fn) for src, fn in libraries.items()}
+        built = {src: f.result() for src, f in futures.items()}
+    emit("build", seconds=time.perf_counter() - t0, libraries={
+        src: {"nvcc_seconds": b.seconds, "library": b.path.name,
+              "ptxas": [ln.strip() for ln in b.ptxas.splitlines()
+                        if any(w in ln for w in ("Function properties", "registers", "spill"))]}
+        for src, b in built.items()})
 
     phase_kernels(torch, nms_kernel)
+    phase_kernels_attention_csp(torch, attention_kernel, csp_kernel)
     summary = phase_serve(torch, gpu_line)
+    summary += phase_serve_transformer(torch, gpu_line)
+    summary += phase_serve_fused_csp(torch, gpu_line)
+    for s in summary:
+        kid, replaces, source = KERNELS[s["name"]]
+        s.update(id=kid, route="cuda", source=source, replaces=replaces)
+    summary.sort(key=lambda s: s["id"])
 
-    keys = ("name", "route", "source", "replaces", "path", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("id", "name", "route", "source", "replaces", "path", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: s[k] for k in keys} for s in summary]}), flush=True)
     print(gpu_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

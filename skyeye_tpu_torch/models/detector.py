@@ -1,9 +1,11 @@
-"""SkyEye detector assembly: backbone + neck + head, plain configs only.
+"""SkyEye detector assembly: backbone + neck + head (+ the transformer P5 head).
 
 Port of ``SkyEyeDetectorModule`` and ``create_detector`` in
 ``skyeye_tpu/models/detector.py``. The module takes NCHW images and returns the
 raw per-level logits in the JAX layout; decode is a separate function. The
-enhanced and transformer variants come with a later slice of the port.
+transformer variant runs its P5 attention through the fused kernel (K4);
+``fused_csp=True`` is the fused-CSP serving mode (K3), built from folded weights
+by ``fused_csp_detector``. The enhanced variant comes with a later slice.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig, load_model_config
+from ..ops.fused_csp import fuse_csp_state
+from ..utils.checkpoint import fuse_conv_bn
 from ..utils.general import resolve_device
 from .backbone import CSPDarknet, feature_channels
 from .head import DetectionHead, decode_predictions
@@ -24,18 +28,18 @@ from .neck import FeatureNeck
 class SkyEyeDetectorModule(nn.Module):
     """Full detector: returns raw per-level logits (B, H, W, na, nc + 5)."""
 
-    def __init__(self, config: ModelConfig):
+    def __init__(self, config: ModelConfig, fused_csp: bool = False):
         super().__init__()
-        if config.enhanced or config.transformer_heads:
+        if config.enhanced:
             raise NotImplementedError(
-                "the enhanced and transformer variants are not ported yet "
-                "(ROADMAP.md Queue 1, Slice D)")
+                "the enhanced variant is not ported yet (ROADMAP.md Queue 1, Slice D)")
         self.config = config
         channels = feature_channels(config.base_channels, config.width_multiple)
         self.backbone = CSPDarknet(config.base_channels, config.depth_multiple,
-                                   config.width_multiple, config.in_channels)
+                                   config.width_multiple, config.in_channels, fused_csp)
         self.neck = FeatureNeck(channels)
-        self.head = DetectionHead(channels, config.nc, config.num_anchors)
+        self.head = DetectionHead(channels, config.nc, config.num_anchors,
+                                  config.transformer_heads)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         return self.head(self.neck(self.backbone(x)))
@@ -47,8 +51,8 @@ class SkyEyeDetectorModule(nn.Module):
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with the JAX package's scales: conv kernels of the
-    conv+BN blocks ~ N(0, 2 / fan_out); other convs and the CBAM MLP ~
-    N(0, 1 / fan_in); biases 0; BN the identity."""
+    conv+BN blocks ~ N(0, 2 / fan_out); other convs and the dense layers ~
+    N(0, 1 / fan_in); biases 0; BN and LayerNorm the identity."""
     for name, m in module.named_modules():
         if isinstance(m, nn.Conv2d):
             o, i, kh, kw = m.weight.shape
@@ -60,7 +64,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.Linear):
             std = math.sqrt(1.0 / m.in_features)
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * std)
-        elif isinstance(m, nn.BatchNorm2d):
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
 
 
@@ -81,3 +87,16 @@ def create_detector(cfg: Union[str, dict, ModelConfig] = "skyeye_s",
     module = SkyEyeDetectorModule(config)
     init_weights(module, torch.Generator().manual_seed(seed))
     return module.eval().to(dev)
+
+
+@torch.no_grad()
+def fused_csp_detector(module: SkyEyeDetectorModule) -> SkyEyeDetectorModule:
+    """The fused-CSP serving form of a canonical detector: every conv + BN folded
+    (``fuse_conv_bn``), stage-1's CSP rewritten for ``FusedCSPBlock``
+    (``fuse_csp_state``), in eval mode on the module's device. The port of what
+    ``bench.py`` does with ``SKYEYE_FUSED_CSP=1``."""
+    device = next(module.parameters()).device
+    state = fuse_csp_state(fuse_conv_bn(module.state_dict()), prefix="backbone.csp1")
+    fused = SkyEyeDetectorModule(module.config, fused_csp=True)
+    fused.load_state_dict(state, strict=True)
+    return fused.eval().to(device)

@@ -2,7 +2,9 @@
 
 Port of ``skyeye_tpu/models/head.py``. The head takes NCHW features and
 returns the JAX layout, (B, H, W, na, nc + 5) raw logits per level; decode
-gives (B, N, nc + 5) with xywh in input pixels and sigmoided obj/cls.
+gives (B, N, nc + 5) with xywh in input pixels and sigmoided obj/cls. With
+``transformer_heads`` a ``TransformerLayer`` (named ``transformer{i}``) refines
+the last level's H*W tokens, in row-major (h, w) order, before its conv.
 """
 from __future__ import annotations
 
@@ -11,21 +13,34 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from .attention import TransformerLayer
+
+TRANSFORMER_HEADS = 4  # attention heads of the P5 transformer, as in flax
+
 
 class DetectionHead(nn.Module):
     """Per-level 1x1 prediction convs -> (B, H, W, na, nc + 5) raw logits."""
 
-    def __init__(self, in_channels: Sequence[int], num_classes: int, num_anchors: int = 3):
+    def __init__(self, in_channels: Sequence[int], num_classes: int, num_anchors: int = 3,
+                 transformer_heads: bool = False):
         super().__init__()
         self.no = num_classes + 5
         self.num_anchors = num_anchors
         self.num_levels = len(in_channels)
-        for i, c in enumerate(in_channels):  # named pred0, pred1, ... as in flax
+        self.transformer_level = self.num_levels - 1 if transformer_heads else -1
+        for i, c in enumerate(in_channels):  # pred0, pred1, transformer2, pred2 as in flax
+            if i == self.transformer_level:
+                self.add_module(f"transformer{i}", TransformerLayer(c, TRANSFORMER_HEADS))
             self.add_module(f"pred{i}", nn.Conv2d(c, num_anchors * self.no, 1))
 
     def forward(self, features: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         outputs = []
         for i, feat in enumerate(features):
+            if i == self.transformer_level:
+                b, c, h, w = feat.shape
+                tokens = feat.permute(0, 2, 3, 1).reshape(b, h * w, c)
+                tokens = getattr(self, f"transformer{i}")(tokens)
+                feat = tokens.reshape(b, h, w, c).permute(0, 3, 1, 2)
             x = getattr(self, f"pred{i}")(feat)
             b, _, h, w = x.shape
             outputs.append(x.permute(0, 2, 3, 1).reshape(b, h, w, self.num_anchors, self.no))

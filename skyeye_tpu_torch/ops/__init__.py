@@ -1,4 +1,5 @@
-"""Tensor ops of the port: boxes, device letterbox, NMS and its Hopper kernels."""
+"""Tensor ops of the port: boxes, device letterbox, NMS and the Hopper kernels'
+wrappers (``nms_kernel``, ``attention_kernel``, ``csp_kernel``, ``fused_csp``)."""
 from .boxes import box_iou, clip_boxes, scale_boxes, xywh2xyxy, xyxy2xywh
 from .letterbox import letterbox_batch, letterbox_params
 from .nms import (

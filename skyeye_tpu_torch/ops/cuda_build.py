@@ -2,7 +2,8 @@
 
 The library has a plain C interface (no PyTorch headers), so a build takes
 seconds. It goes into ``skyeye_tpu_torch/_build/`` at first use, named by a hash
-of its source and flags, so a stale library is never loaded. The build runs
+of its source and its own flags, so a stale library is never loaded and no
+source inherits a flag that another one needs. The build runs
 under a time limit and raises on failure; nothing here falls back.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Dict, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -24,7 +26,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 300
 
@@ -39,7 +41,8 @@ class Built:
     ptxas: str      # nvcc's resource report (registers, shared memory, spills)
 
 
-_LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}  # one per library, so sources build in parallel
+_LOCKS_GUARD = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -53,13 +56,17 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH, under $CUDA_HOME/bin or /usr/local/cuda/bin")
 
 
-def load_library(source: str) -> Built:
-    """Build ``csrc/<source>`` (once per content hash) and load it."""
+def load_library(source: str, extra_flags: Sequence[str] = ()) -> Built:
+    """Build ``csrc/<source>`` with ``NVCC_FLAGS`` plus ``extra_flags`` (once per
+    hash of both and the source) and load it."""
     path = CSRC_DIR / source
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *extra_flags)
+    digest = hashlib.sha256(" ".join(flags).encode())
     digest.update(path.read_bytes())
     key = f"{path.stem}-{digest.hexdigest()[:16]}"
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(key, threading.Lock())
+    with lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         target = BUILD_DIR / f"lib{key}.so"
         seconds, ptxas = 0.0, ""
@@ -67,7 +74,7 @@ def load_library(source: str) -> Built:
             # build beside the target and rename, so no process loads a half-written file
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(path)]
+            cmd = [find_nvcc(), *flags, "-o", tmp, str(path)]
             t0 = time.perf_counter()
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True,

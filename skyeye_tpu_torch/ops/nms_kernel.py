@@ -37,7 +37,8 @@ def reset_launch_counts() -> None:
 @functools.cache
 def nms_library() -> Built:
     """Build (at first use) and bind the NMS kernels, once per process."""
-    built = load_library("nms.cu")
+    # -fmad=false: each IoU rounds as PyTorch's separate elementwise ops do
+    built = load_library("nms.cu", ("-fmad=false",))
     lib = built.lib
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.skyeye_batched_greedy_nms.argtypes = [ptr, ptr, i32, i32, i32, f32, ptr, ptr, ptr]
