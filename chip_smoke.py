@@ -9,13 +9,21 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
   build    nvcc builds the three kernel libraries (csrc/nms.cu, attention.cu,
            csp.cu) in parallel, each into a plain-C library
   kernels  K1 (batched greedy NMS) and K2 (single-image greedy NMS) against their
-           plain PyTorch versions on the card, index for index, on seeded inputs
+           plain PyTorch versions on the card, index for index, on seeded inputs,
+           up to k 4096 (the register path) and at k 8192 and 6001 (the
+           device-memory path)
   kernels_attention_csp
            K4 (fused attention) against ``attention_reference`` at the serving
            shape (64, 1600, 256), at ragged shapes down to one token and a
-           large-logit case; K3 (fused CSP) against ``csp_fused_plain`` at csp1's
-           serving shape (16, 320, 320, 64), nb 1, at nb 3 with ragged tiles and
-           at 12 channels
+           large-logit case; K4's gradients through its autograd Function
+           against ``attention_reference``'s autograd at (8, 400, 64) and the
+           serving shape, and a train-mode MultiHeadSelfAttention's output and
+           qkv and proj gradients against the same module on
+           ``attention_reference``; heads of 320 (the einsum path, by the gate);
+           K3 (fused CSP) against ``csp_fused_plain`` at csp1's serving shape
+           (16, 320, 320, 64), nb 1, at nb 3 with ragged tiles, at 12 channels,
+           and at csp1 of skyeye_m (C 96, nb 2) and of skyeye_l (C 128, nb 3),
+           whose packed weights the kernel reads from device memory, each timed
   serve    SkyEyeDetector("skyeye_s") at full width, seeded weights, float32 with
            TF32 off, serves 3 requests of 16 uint8 1080x1920 frames at 1280 px
            (conf 0.25, 0.001, 0.001; K1's launches counted over just these),
@@ -30,13 +38,15 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            logits held against the same model with ``attention_reference`` put
            in, K1 against the plain NMS on the inputs the requests gave it, K4
            timed on the inputs the requests gave it (beside the plain versions
-           and ``scaled_dot_product_attention``, timed as a yardstick only), and
-           one request split into its stages
+           and ``scaled_dot_product_attention``, timed as a yardstick only) and
+           held with ``attention_reference`` against float64, and one request
+           split into its stages
   serve_fused_csp
            skyeye_s rebuilt in the fused-CSP serving mode (``fused_csp_detector``:
            BN folded, csp1 on K3), the same 3 requests (K3's launches counted over
-           just these); its logits held against the canonical detector on the
-           folded weights; K3 timed on the input the requests gave it (beside its
+           just these, the block's packed weights prepared once and reused); its
+           logits held against the canonical detector on the folded weights; K3
+           timed on the input and packed weights the requests gave it (beside its
            plain version and the cuDNN bf16 canonical CSPBlock, as context); K3b,
            the same kernel under the v1 name, called once on that input
 
@@ -58,10 +68,13 @@ import numpy as np
 
 WATCHDOG_S = 900
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
-# tensor cores, bf16 dense on the tensor cores.
+# tensor cores, TF32 and bf16 dense on the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_TF32_OPS_S = 495e12
 PEAK_BF16_OPS_S = 989e12
+# TF32 products that carry one float32 product in K4 (3xTF32)
+TF32_PRODUCTS_PER_F32 = 3
 # Operations per candidate and greedy step: the argmax compare, the IoU against
 # the winner (2 min, 2 max, 2 sub, 2 clamp, 1 mul, 2 add, 1 sub, 1 div) and
 # the suppression compare and select.
@@ -160,6 +173,11 @@ def phase_kernels(torch, nms_kernel):
     cases.append(("ragged_b3_k1000", boxes, scores, 0.45, 300))
     boxes, scores = special_candidates(rng)
     cases.append(("special_b5_k200", boxes, scores, 0.5, 64))
+    # above MAX_CANDIDATES: the device-memory path
+    boxes, scores = candidates(rng, 16, 8192)
+    cases.append(("b16_k8192_iou0.45", boxes, scores, 0.45, 300))
+    boxes, scores = candidates(rng, 3, 6001)
+    cases.append(("ragged_b3_k6001", boxes, scores, 0.45, 300))
 
     checked = []
     for name, boxes, scores, iou, md in cases:
@@ -179,7 +197,8 @@ def phase_kernels(torch, nms_kernel):
         checked.append({"case": name, "B": int(tb.shape[0]), "k": int(tb.shape[1]), "iou": iou,
                         "max_det": md, "kept": valid.sum(dim=1).tolist(), "k2_rows": rows_ok})
     times = {}
-    for name, boxes, scores, iou, md in cases[:4:2]:  # b16, k 1024 and 4096, iou 0.45
+    # b16 at k 1024 and 4096 (iou 0.45), b16 at k 8192, b3 at k 6001
+    for name, boxes, scores, iou, md in cases[:4:2] + cases[-2:]:
         tb, ts = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
         times[name] = {
             "K1_ms": cuda_ms(lambda: nms_kernel.batched_greedy_nms(tb, ts, iou, md), 30),
@@ -380,6 +399,110 @@ def csp_weights(torch, gen, c: int, h: int, c_out: int, nb: int):
             for name, (shape, fan_in) in shapes.items()}
 
 
+def csp_bound(x, out, weights):
+    """K3's bound: x, the output and the weights in bf16 moved once over the HBM
+    rate, against 2 (2 C h + 10 nb h^2 + 2 h C_out) operations a pixel over the
+    bf16 tensor-core peak."""
+    b, hh, ww, c = x.shape
+    h, c_out, nb = weights.h, weights.c_out, weights.num_blocks
+    nbytes = (x.numel() + out.numel() + sum(w.numel() for w in weights.rounded.values())) * 2
+    ops = 2.0 * b * hh * ww * (2 * c * h + nb * 10 * h * h + 2 * h * c_out)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_BF16_OPS_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# K4's gradients against attention_reference's autograd: the backward is the
+# same float32 recompute in another order of sums, so within 1e-4 of the largest
+# gradient
+GRAD_REL_TOL = 1e-4
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def attention_gradients(torch, attention_kernel, randn):
+    """dq, dk, dv through K4's autograd Function on the card against autograd of
+    ``attention_reference``, and a train-mode MultiHeadSelfAttention at N 256."""
+    from skyeye_tpu_torch.models import attention as port_attention
+
+    out = []
+    for case, shape in (("b8_n400_hd64", (8, 400, 64)),
+                        ("serving_b64_n1600_hd256", (64, 1600, 256))):
+        q, k, v = (randn(shape).requires_grad_(True) for _ in range(3))
+        g = randn(shape)
+        attention_kernel.reset_launch_counts()
+        o = attention_kernel.flash_attention(q, k, v)
+        if o.grad_fn is None or attention_kernel.LAUNCHES["flash_attention"] != 1:
+            fail(f"K4 with grad on {case}: grad_fn {o.grad_fn}, "
+                 f"launches {attention_kernel.LAUNCHES['flash_attention']}")
+        got = torch.autograd.grad(o, (q, k, v), g)
+        want = torch.autograd.grad(attention_kernel.attention_reference(q, k, v), (q, k, v), g)
+        errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        if not all(bool(torch.isfinite(a).all()) for a in got) or max(errs.values()) > GRAD_REL_TOL:
+            fail(f"K4's gradients differ from attention_reference's on {case}: {errs}")
+        out.append({"case": case, "shape": list(shape), "grad_fn": type(o.grad_fn).__name__,
+                    "rel_err": errs})
+        del q, k, v, g, o, got, want
+
+    # train mode, N 256: the module reaches K4 through the Function
+    torch.manual_seed(0)
+    m = port_attention.MultiHeadSelfAttention(256, 4).cuda().train()
+    x = randn((2, 256, 256))
+    g = randn((2, 256, 256))
+    attention_kernel.reset_launch_counts()
+    y = m(x)
+    y.backward(g)
+    launches = attention_kernel.LAUNCHES["flash_attention"]
+    # qkv's gradient comes through the recompute; proj's and the output depend on
+    # K4's forward output
+    got = {"out": y.detach(), "qkv.weight.grad": m.qkv.weight.grad.clone(),
+           "proj.weight.grad": m.proj.weight.grad.clone()}
+    m.zero_grad()
+    with mock.patch.object(port_attention, "flash_attention", attention_kernel.attention_reference):
+        y = m(x)
+        y.backward(g)
+    want = {"out": y.detach(), "qkv.weight.grad": m.qkv.weight.grad,
+            "proj.weight.grad": m.proj.weight.grad}
+    errs = {n: rel_err(got[n], want[n]) for n in got}
+    if (launches != 1 or not all(bool(torch.isfinite(t).all()) for t in got.values())
+            or max(errs.values()) > GRAD_REL_TOL):
+        fail(f"train-mode MHSA: {launches} K4 launches, rel errs {errs}")
+    out.append({"case": "mhsa_train_b2_n256_c256_h4", "k4_launches": launches,
+                "rel_err": errs})
+    return out
+
+
+def attention_wide_heads(torch, attention_kernel, gen):
+    """Heads of 320 (C 640, 2 heads, N 256): the gate sends them to the einsum
+    path, which gives attention_reference's result; K4's wrapper refuses them."""
+    from skyeye_tpu_torch.models import attention as port_attention
+
+    torch.manual_seed(1)
+    m = port_attention.MultiHeadSelfAttention(640, 2).cuda().eval()
+    x = torch.randn((2, 256, 640), generator=gen, device="cuda")
+    attention_kernel.reset_launch_counts()
+    with torch.no_grad():
+        got = m(x)
+        q, k, v = m.qkv(x).reshape(2, 256, 3, 2, 320).permute(2, 0, 3, 1, 4).reshape(
+            3, 4, 256, 320).unbind(0)
+        o = attention_kernel.attention_reference(q, k, v)
+        want = m.proj(o.reshape(2, 2, 256, 320).transpose(1, 2).reshape(2, 256, 640))
+    launches = attention_kernel.LAUNCHES["flash_attention"]
+    err = rel_err(got, want)
+    if launches != 0 or not bool(torch.isfinite(got).all()) or err > GRAD_REL_TOL:
+        fail(f"heads of 320: {launches} K4 launches, rel err {err} against attention_reference")
+    try:
+        attention_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    except ValueError:
+        pass
+    else:
+        fail("K4's wrapper took heads of 320")
+    return {"case": "mhsa_b2_n256_c640_h2_hd320", "k4_launches": launches, "rel_err": err}
+
+
 def phase_kernels_attention_csp(torch, attention_kernel, csp_kernel):
     """K4 against ``attention_reference`` and K3/K3b against ``csp_fused_plain`` on
     the card, on seeded inputs."""
@@ -411,16 +534,23 @@ def phase_kernels_attention_csp(torch, attention_kernel, csp_kernel):
                           "max_abs_err_vs_reference": float((got - ref).abs().max()),
                           "max_abs_err_vs_plain": float((got - plain).abs().max())})
     del q, k, v, got, ref, plain
+    gradients = attention_gradients(torch, attention_kernel, randn)
+    wide_heads = attention_wide_heads(torch, attention_kernel, gen)
 
     csp = []
     # (case, (B, H, W, C), nb, tile_rows): csp1's serving shape; nb 3 with ragged
-    # tiles in both H (45 = 5 * 8 + 5) and W (37 = 32 + 5); and 12 channels, which
-    # the kernel loads in pairs rather than in eights
+    # tiles in both H (45 = 5 * 8 + 5) and W (37 = 32 + 5); 12 channels, which
+    # the kernel loads in pairs rather than in eights; and csp1 of skyeye_m and of
+    # the skyeye_l models at 1280 px, whose packed weights the kernel reads from
+    # device memory (they do not fit shared memory beside the halo grid)
     for case, (b, hh, ww, c), nb, tile_rows in (
             ("serving_b16_320x320_c64_nb1", (16, 320, 320, 64), 1, csp_kernel.TILE_ROWS),
             ("ragged_b2_45x37_c64_nb3", (2, 45, 37, 64), 3, 8),
-            ("narrow_b1_19x70_c12_nb2", (1, 19, 70, 12), 2, 5)):
-        weights = csp_weights(torch, gen, c, c // 2, c, nb)
+            ("narrow_b1_19x70_c12_nb2", (1, 19, 70, 12), 2, 5),
+            ("skyeye_m_csp1_b16_320x320_c96_nb2", (16, 320, 320, 96), 2, csp_kernel.TILE_ROWS),
+            ("skyeye_l_csp1_b16_320x320_c128_nb3", (16, 320, 320, 128), 3,
+             csp_kernel.TILE_ROWS)):
+        weights = csp_kernel.prepare_weights(csp_weights(torch, gen, c, c // 2, c, nb), nb)
         x = randn((b, hh, ww, c)).to(torch.bfloat16)
         got = csp_kernel.csp_fused_v2(x, weights, nb, tile_rows)
         v1 = csp_kernel.csp_fused(x, weights, nb, tile_rows)
@@ -433,8 +563,15 @@ def phase_kernels_attention_csp(torch, attention_kernel, csp_kernel):
         if not torch.equal(got, v1):
             fail(f"K3b (csp_fused) and K3 (csp_fused_v2) differ on {case}")
         csp.append({"case": case, "shape": [b, hh, ww, c], "nb": nb, "tile_rows": tile_rows,
-                    "max_abs_err": err, "limit": limit, "max_abs_ref": float(ref.abs().max())})
-    emit("kernels_attention_csp", attention=attention, csp=csp)
+                    "max_abs_err": err, "limit": limit, "max_abs_ref": float(ref.abs().max()),
+                    "weights_in_smem": csp_kernel.weights_in_smem(c, c // 2, nb, tile_rows),
+                    "ms": cuda_ms(lambda: csp_kernel.csp_fused_v2(x, weights, nb, tile_rows),
+                                  10),
+                    "plain_ms": cuda_ms(lambda: csp_kernel.csp_fused_plain(x, weights, nb), 3),
+                    **csp_bound(x, got, weights)})
+        del weights, x, got, v1, ref
+    emit("kernels_attention_csp", attention=attention, attention_gradients=gradients,
+         attention_wide_heads=wide_heads, csp=csp)
 
 
 def phase_serve_transformer(torch, gpu_line):
@@ -520,8 +657,9 @@ def phase_serve_transformer(torch, gpu_line):
     sdpa = F.scaled_dot_product_attention(q, k, v)
     b, n, hd = q.shape
     nbytes = 4 * q.numel() * 4  # q, k, v read once, o written once
-    ops = 4.0 * b * n * n * hd  # two products of 2 N^2 hd each
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    # two products of 2 N^2 hd each in float32: three TF32 products apiece
+    ops = TF32_PRODUCTS_PER_F32 * 4.0 * b * n * n * hd
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_TF32_OPS_S * 1e3
     k4 = dict(
         name="flash_attention", path="serve_transformer",
         launches=launches["flash_attention"],
@@ -533,6 +671,11 @@ def phase_serve_transformer(torch, gpu_line):
         shape=[b, n, hd])
     k4_reference_ms = cuda_ms(lambda: attention_kernel.attention_reference(q, k, v), 5)
     sdpa_err = float((sdpa - ref).abs().max())
+    # K4 and attention_reference against the same einsums in float64
+    ref64 = attention_kernel.attention_reference(q.double(), k.double(), v.double())
+    f64 = {"k4": float((out.double() - ref64).abs().max()),
+           "attention_reference": float((ref.double() - ref64).abs().max())}
+    del ref64
     del q, k, v, out, ref, sdpa, k4_inputs[:], k1_inputs
 
     emit("serve_transformer", model="skyeye_l_transformer", img_size=1280, batch=len(batch),
@@ -544,6 +687,7 @@ def phase_serve_transformer(torch, gpu_line):
          k1_kept_on_rerun=kept, logit_max_abs_err=logit_err, max_abs_logit=max_logit,
          k4_shape=k4["shape"], k4_ms=k4["ms"], k4_reference_ms=k4_reference_ms,
          k4_plain_ms=k4["plain_ms"], sdpa_ms=k4["library_ms"], sdpa_max_abs_err=sdpa_err,
+         max_abs_err_vs_float64=f64,
          card=gpu_line, stage_ms={"0.001": stage_ms(torch, det, batch, 0.001)})
     del det
     torch.cuda.empty_cache()
@@ -566,8 +710,9 @@ def phase_serve_fused_csp(torch, gpu_line):
     canonical = canonical.eval().cuda()
     det.model = fused_csp_detector(det.model)
     batch = frames(seed=1)
-    det(batch)  # warm-up
+    det(batch)  # warm-up; fused_csp_detector prepared the packed weights
     torch.cuda.synchronize()
+    prepared = det.model.backbone.csp1.prepared
 
     # -- the serving path, nothing patched: counts from 0 just before, read just after
     csp_kernel.reset_launch_counts()
@@ -582,6 +727,8 @@ def phase_serve_fused_csp(torch, gpu_line):
 
     if launches["csp_fused_v2"] == 0:
         fail("the fused-CSP serving path never launched csp_fused_v2")
+    if det.model.backbone.csp1.prepared is not prepared:
+        fail("the fused CSP block prepared its packed weights again between requests")
     for r in served:
         check_detections(r, batch[0].shape[:2], det.config.nc)
 
@@ -623,13 +770,10 @@ def phase_serve_fused_csp(torch, gpu_line):
         if err > 0.02 * float(ref.float().abs().max()) + 1e-3:
             fail(f"K3 disagrees with csp_fused_plain on csp1's serving input by {err}")
 
+        if weights is not prepared:
+            fail("the served fused CSP block did not hand K3 its prepared weights")
         b, hh, ww, c = xh.shape
-        h, c_out = weights["w_cv1"].shape[1], weights["w_cv3"].shape[1]
-        nbytes = (xh.numel() + out.numel() + sum(w.numel() for w in weights.values())) * 2
-        ops = 2.0 * b * hh * ww * (2 * c * h + nb * 10 * h * h + 2 * h * c_out)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_BF16_OPS_S * 1e3
-        bound = dict(bound_ms=max(t_bytes, t_ops),
-                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        bound = csp_bound(xh, out, weights)
         plain_ms = cuda_ms(lambda: csp_kernel.csp_fused_plain(xh, weights, nb), 5)
         summary = [
             dict(name="csp_fused_v2", path="serve_fused_csp", launches=launches["csp_fused_v2"],
@@ -644,7 +788,7 @@ def phase_serve_fused_csp(torch, gpu_line):
         ]
         # context only, not a port: the canonical CSPBlock on cuDNN, bf16, channels_last,
         # on the same folded weights and input
-        block = CSPBlock(c, c_out, nb)
+        block = CSPBlock(c, weights.c_out, nb)
         block.load_state_dict({k[len("backbone.csp1."):]: v for k, v in folded.items()
                                if k.startswith("backbone.csp1.")}, strict=True)
         block = block.eval().cuda().to(torch.bfloat16).to(memory_format=torch.channels_last)

@@ -14,9 +14,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention_kernel import flash_attention
+from ..ops.attention_kernel import MAX_HEAD_DIM, flash_attention
 
 FLASH_MIN_TOKENS = 256  # the JAX gate: below it the einsum path runs
+
+
+def takes_flash_path(n: int, hd: int, mask, bias) -> bool:
+    """The shape rule of the fused path: JAX's gate (no mask or bias, 256 tokens
+    or more) and heads the kernel holds."""
+    return mask is None and bias is None and n >= FLASH_MIN_TOKENS and hd <= MAX_HEAD_DIM
 
 
 class ChannelAttention(nn.Module):
@@ -77,7 +83,7 @@ class MultiHeadSelfAttention(nn.Module):
         b, n, c = x.shape
         hd = c // self.num_heads
         q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, hd).unbind(2)
-        if mask is None and bias is None and n >= FLASH_MIN_TOKENS:
+        if takes_flash_path(n, hd, mask, bias):
             def heads_first(t):
                 return t.transpose(1, 2).reshape(b * self.num_heads, n, hd).float().contiguous()
 

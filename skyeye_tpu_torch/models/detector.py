@@ -93,10 +93,13 @@ def create_detector(cfg: Union[str, dict, ModelConfig] = "skyeye_s",
 def fused_csp_detector(module: SkyEyeDetectorModule) -> SkyEyeDetectorModule:
     """The fused-CSP serving form of a canonical detector: every conv + BN folded
     (``fuse_conv_bn``), stage-1's CSP rewritten for ``FusedCSPBlock``
-    (``fuse_csp_state``), in eval mode on the module's device. The port of what
-    ``bench.py`` does with ``SKYEYE_FUSED_CSP=1``."""
+    (``fuse_csp_state``), in eval mode on the module's device, with the kernel's
+    packed weights prepared. The port of what ``bench.py`` does with
+    ``SKYEYE_FUSED_CSP=1``."""
     device = next(module.parameters()).device
     state = fuse_csp_state(fuse_conv_bn(module.state_dict()), prefix="backbone.csp1")
     fused = SkyEyeDetectorModule(module.config, fused_csp=True)
     fused.load_state_dict(state, strict=True)
-    return fused.eval().to(device)
+    fused = fused.eval().to(device)
+    fused.backbone.csp1.prepare()
+    return fused

@@ -7,6 +7,12 @@ returns what ``padded_flash_attention`` returns after its padding and slicing,
 ``nvcc`` at first use and bound with ctypes. It masks the key tail inside the
 kernel, so nothing is padded in device memory.
 
+``flash_attention`` is differentiable: it runs through ``FlashAttention``, a
+``torch.autograd.Function`` whose backward is ``flash_attention_backward``, the
+recompute of JAX's custom VJP (``_padded_flash_bwd``) in float32. That backward
+is einsums in JAX too, so it is plain PyTorch here. Without grad (``no_grad``,
+``inference_mode`` or inputs that need none) the forward saves nothing.
+
 A CUDA tensor launches the kernel (and adds one to ``LAUNCHES``); a CPU tensor
 runs ``flash_attention_plain``, the kernel's online softmax over key tiles op
 for op. ``attention_reference`` is the einsum, softmax, einsum definition.
@@ -15,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,8 +31,8 @@ from .cuda_build import Built, load_library
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 NEG_INF = -1e30   # the score of a masked key, as in the TPU kernel
-BLOCK_K = 64      # keys per tile: kBK in csrc/attention.cu
-MAX_HEAD_DIM = 256  # the widest head the kernel holds: 16 * kMaxCols in csrc/attention.cu
+BLOCK_K = 32      # keys per tile: kBK in csrc/attention.cu
+MAX_HEAD_DIM = 256  # the widest head the kernel holds: kMaxHeadDim in csrc/attention.cu
 
 
 def reset_launch_counts() -> None:
@@ -35,9 +41,11 @@ def reset_launch_counts() -> None:
 
 
 @functools.cache
-def attention_library() -> Built:
-    """Build (at first use) and bind the attention kernel, once per process."""
-    built = load_library("attention.cu")
+def attention_library(*extra_flags: str) -> Built:
+    """Build (at first use) and bind the attention kernel, once per process and
+    set of extra ``nvcc`` flags (``-DSKYEYE_SCORE_FP32``: the score product on
+    float32 FMAs, ``tools/attention_precision.py``'s comparison)."""
+    built = load_library("attention.cu", extra_flags)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     built.lib.skyeye_flash_attention.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, f32, ptr]
     built.lib.skyeye_flash_attention.restype = i32
@@ -78,10 +86,73 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return acc / l.clamp(min=1e-30)
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             g: torch.Tensor):
+    """dq, dk, dv of softmax(q k^T * hd^-0.5) v for the output gradient g: the
+    exact backward recomputed in float32, as ``_padded_flash_bwd`` does."""
+    scale = q.shape[-1] ** -0.5
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+    p = torch.softmax(torch.einsum("bqc,bkc->bqk", q32, k32) * scale, dim=-1)
+    dv = torch.einsum("bqk,bqc->bkc", p, g32)
+    dp = torch.einsum("bqc,bkc->bqk", g32, v32)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bqk,bkc->bqc", ds, k32) * scale
+    dk = torch.einsum("bqk,bqc->bkc", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # -- kernel wrapper -------------------------------------------------------------
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = run_kernel(q, k, v)
+    if out.numel():
+        LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def run_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               extra_flags: Tuple[str, ...] = ()) -> torch.Tensor:
+    """The kernel built with ``extra_flags`` on contiguous float32 CUDA q, k, v;
+    counts nothing (``flash_attention`` is the entry point)."""
+    b, n, hd = q.shape
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernel holds heads of at most {MAX_HEAD_DIM}, got {hd}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = attention_library(*extra_flags).lib
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.skyeye_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         out.data_ptr(), b, n, hd, hd ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 with JAX's custom VJP: the forward is the kernel (or its plain version),
+    the backward ``flash_attention_backward`` on the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, keep_for_backward: bool):
+        if keep_for_backward:
+            ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*flash_attention_backward(*ctx.saved_tensors, g), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K4: softmax(q k^T * hd^-0.5) v over (B, N, hd) float32 -> (B, N, hd) float32."""
+    """K4: softmax(q k^T * hd^-0.5) v over (B, N, hd) float32 -> (B, N, hd) float32,
+    differentiable through ``FlashAttention``."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected q, k, v of one (B, N, hd) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -92,22 +163,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
             raise ValueError(f"{name} must be contiguous")
         if t.device != q.device:
             raise ValueError("q, k and v must be on one device")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    b, n, hd = q.shape
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"the attention kernel holds heads of at most {MAX_HEAD_DIM}, got {hd}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = attention_library().lib
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.skyeye_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         out.data_ptr(), b, n, hd, hd ** -0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    LAUNCHES["flash_attention"] += 1
-    return out
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, keep)

@@ -7,12 +7,12 @@ the stage-1 CSP for ``FusedCSPBlock`` (flat parameters, one kernel launch:
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
 
-from .csp_kernel import TILE_ROWS, WEIGHT_NAMES, csp_fused_v2
+from .csp_kernel import TILE_ROWS, WEIGHT_NAMES, PreparedCSPWeights, csp_fused_v2, prepare_weights
 
 
 class FusedCSPBlock(nn.Module):
@@ -22,6 +22,11 @@ class FusedCSPBlock(nn.Module):
     ``w_m2`` (nb, 3, 3, h, h)); they come from ``fuse_csp_state`` and are never
     trained. Takes NCHW float32, runs the kernel on a channels-last bf16 copy and
     returns float32 (NCHW view of channels-last memory).
+
+    ``prepare()`` packs the kernel's weights from the parameters once
+    (``fused_csp_detector`` calls it after loading and placing them), so a served
+    call launches only the kernel. Call it again after changing or moving the
+    parameters.
     """
 
     def __init__(self, in_channels: int, out_channels: int, num_blocks: int = 1):
@@ -34,13 +39,22 @@ class FusedCSPBlock(nn.Module):
         for name in WEIGHT_NAMES:
             self.register_parameter(name, nn.Parameter(torch.zeros(shapes[name]),
                                                        requires_grad=False))
+        self.prepared: Optional[PreparedCSPWeights] = None
+
+    def prepare(self) -> PreparedCSPWeights:
+        """Pack the kernel's weights from the parameters, where they are."""
+        weights = {name: getattr(self, name) for name in WEIGHT_NAMES}
+        self.prepared = prepare_weights(weights, self.num_blocks)
+        return self.prepared
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             raise RuntimeError("FusedCSPBlock is a serving-only path; call .eval()")
-        weights = {name: getattr(self, name) for name in WEIGHT_NAMES}
+        if self.prepared is None or self.prepared.frags.device != x.device:
+            raise RuntimeError("FusedCSPBlock's packed weights are not prepared on "
+                               f"{x.device}; call prepare() after loading or moving them")
         xh = x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
-        out = csp_fused_v2(xh, weights, self.num_blocks, TILE_ROWS)
+        out = csp_fused_v2(xh, self.prepared, self.num_blocks, TILE_ROWS)
         return out.permute(0, 3, 1, 2).to(x.dtype)
 
 

@@ -7,7 +7,10 @@ built by ``nvcc`` at first use and bound with ctypes.
 
 Each wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel (and adds one to its count in ``LAUNCHES``), a CPU tensor runs the plain
-PyTorch version beside it. The plain versions have the kernel's semantics and
+PyTorch version beside it. Up to ``MAX_CANDIDATES`` per image the kernel keeps
+the candidates in registers; above it, as JAX takes any k, the wrapper hands the
+kernel a (B, k) float32 scratch for the live scores and it runs the same loop
+from device memory. The plain versions have the kernel's semantics and
 arithmetic, op for op, so the two agree index for index; they serve the CPU and
 the on-card comparison, never the main path on a card.
 """
@@ -25,7 +28,8 @@ from .cuda_build import Built, load_library
 LAUNCHES: Dict[str, int] = {"batched_greedy_nms": 0, "greedy_nms": 0}
 
 _EPS = 1e-7
-# Candidates per image that the kernel holds: kThreads * kMaxItems in csrc/nms.cu.
+# Candidates per image that the register path holds: kThreads * kMaxItems in
+# csrc/nms.cu. Above it the kernel keeps its live scores in a device scratch.
 MAX_CANDIDATES = 4096
 
 
@@ -41,9 +45,9 @@ def nms_library() -> Built:
     built = load_library("nms.cu", ("-fmad=false",))
     lib = built.lib
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.skyeye_batched_greedy_nms.argtypes = [ptr, ptr, i32, i32, i32, f32, ptr, ptr, ptr]
+    lib.skyeye_batched_greedy_nms.argtypes = [ptr, ptr, i32, i32, i32, f32, ptr, ptr, ptr, ptr]
     lib.skyeye_batched_greedy_nms.restype = i32
-    lib.skyeye_greedy_nms.argtypes = [ptr, ptr, i32, i32, f32, ptr, ptr, ptr]
+    lib.skyeye_greedy_nms.argtypes = [ptr, ptr, i32, i32, f32, ptr, ptr, ptr, ptr]
     lib.skyeye_greedy_nms.restype = i32
     return built
 
@@ -121,9 +125,13 @@ def _launch(fn_name: str, boxes: torch.Tensor, scores: torch.Tensor, iou_thres: 
     if k == 0 or max_det == 0 or scores.numel() == 0:  # nothing to suppress: no launch
         return (torch.zeros(out_shape, dtype=torch.int32, device=scores.device),
                 torch.zeros(out_shape, dtype=torch.bool, device=scores.device))
-    if k > MAX_CANDIDATES:
-        raise ValueError(f"the NMS kernel holds at most {MAX_CANDIDATES} candidates per image, "
-                         f"got {k}")
+    scratch_ptr = None
+    if k > MAX_CANDIDATES:  # the device-memory path: the live scores in a scratch
+        if boxes.data_ptr() % 16:
+            raise ValueError("above MAX_CANDIDATES the NMS kernel reads boxes as 16-byte "
+                             "vectors: boxes must be 16-byte aligned")
+        scratch = torch.empty(scores.shape, dtype=torch.float32, device=scores.device)
+        scratch_ptr = scratch.data_ptr()
     keep_idx = torch.empty(out_shape, dtype=torch.int32, device=scores.device)
     keep_valid = torch.empty(out_shape, dtype=torch.bool, device=scores.device)
     lib = nms_library().lib
@@ -132,10 +140,10 @@ def _launch(fn_name: str, boxes: torch.Tensor, scores: torch.Tensor, iou_thres: 
         if fn_name == "batched_greedy_nms":
             err = lib.skyeye_batched_greedy_nms(
                 boxes.data_ptr(), scores.data_ptr(), scores.shape[0], k, max_det,
-                iou_thres, keep_idx.data_ptr(), keep_valid.data_ptr(), stream)
+                iou_thres, scratch_ptr, keep_idx.data_ptr(), keep_valid.data_ptr(), stream)
         else:
             err = lib.skyeye_greedy_nms(
-                boxes.data_ptr(), scores.data_ptr(), k, max_det, iou_thres,
+                boxes.data_ptr(), scores.data_ptr(), k, max_det, iou_thres, scratch_ptr,
                 keep_idx.data_ptr(), keep_valid.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {err}")

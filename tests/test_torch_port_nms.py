@@ -190,6 +190,31 @@ def test_nms_batched_matches_jax_exact_cut(mode, conf, max_nms):
     np.testing.assert_allclose(det[..., :5].numpy(), ref_det[..., :5], rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("api", ["nms_batched", "non_max_suppression"])
+def test_more_candidates_than_the_register_path_holds_match_jax(api):
+    """max_nms 8192, above MAX_CANDIDATES: 2 images of 2000 boxes x 5 classes,
+    multi-label at conf 0.001, so the greedy NMS gets 8192 candidates, nearly all
+    valid, and keeps the same detections in the same order as JAX's exact cut."""
+    pred = _decoded(41, b=2, n=2000)
+    conf, max_nms = 0.001, 8192
+    scores = pred[..., 5:] * pred[..., 4:5]
+    assert ((scores > conf).reshape(2, -1).sum(1) > 2 * nms_kernel.MAX_CANDIDATES).all()
+    kw = dict(conf_thres=conf, iou_thres=0.45, multi_label=True, max_det=100, max_nms=max_nms)
+    if api == "nms_batched":
+        ref_det, ref_n = jnms.nms_batched(jnp.asarray(pred), approx_topk=False, **kw)
+        det, n = tnms.nms_batched(torch.from_numpy(pred), **kw)
+        np.testing.assert_array_equal(n.numpy(), np.asarray(ref_n))
+        ref, got = [np.asarray(ref_det)], [det.numpy()]
+    else:
+        ref = jnms.non_max_suppression(pred, **kw)
+        got = tnms.non_max_suppression(pred, **kw)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_array_equal(g[..., 5], r[..., 5])  # classes, in order
+        np.testing.assert_allclose(g[..., :5], r[..., :5], rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("multi_label", [False, True])
 def test_nms_single_matches_jax(multi_label):
     pred = _decoded(21, b=1)[0]

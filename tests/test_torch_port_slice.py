@@ -140,6 +140,7 @@ def test_main_path_imports_no_jax():
         "import skyeye_tpu_torch, skyeye_tpu_torch.api, skyeye_tpu_torch.ops.nms_kernel\n"
         "import skyeye_tpu_torch.ops.attention_kernel, skyeye_tpu_torch.ops.csp_kernel\n"
         "import skyeye_tpu_torch.ops.fused_csp, skyeye_tpu_torch.models.attention\n"
+        "import skyeye_tpu_torch.tools.attention_precision\n"
         "import chip_smoke\n"
         "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
