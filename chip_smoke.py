@@ -9,9 +9,13 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
   build    nvcc builds the three kernel libraries (csrc/nms.cu, attention.cu,
            csp.cu) in parallel, each into a plain-C library
   kernels  K1 (batched greedy NMS) and K2 (single-image greedy NMS) against their
-           plain PyTorch versions on the card, index for index, on seeded inputs,
-           up to k 4096 (the register path) and at k 8192 and 6001 (the
-           device-memory path)
+           plain PyTorch versions on the card, index for index, on seeded inputs
+           from k 200 to 8192 and on a case of NaN scores and coordinates, +inf
+           and signed-zero scores; K1 at 70000 images and at max_det 16384;
+           each of the three stages (order, mask, walk)
+           against its plain stage on the same input, exactly; K1, K2 and each
+           stage timed per call (CUDA events around the call, the host's launch
+           work included) and on the device alone (``graph_ms``)
   kernels_attention_csp
            K4 (fused attention) against ``attention_reference`` at the serving
            shape (64, 1600, 256), at ragged shapes down to one token and a
@@ -29,8 +33,9 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            (conf 0.25, 0.001, 0.001; K1's launches counted over just these),
            then the per-image functional path (decode -> nms_single on each
            image; K2's launches counted over just that); every result is held
-           against the same detector with the plain NMS put in, the kernels are
-           timed on the inputs the serving path gave K1, and one request is
+           against the same detector with the plain NMS put in, K1 index for
+           index against the plain NMS on the inputs the serving path gave it
+           at both confidences, the kernels timed on them, and one request
            split into its stages by the detector's ``on_stage`` hook
   serve_transformer
            SkyEyeDetector("skyeye_l_transformer") at full width and depth, the
@@ -131,6 +136,46 @@ def special_candidates(rng):
     return boxes, scores
 
 
+def crowded_candidates(rng, b, k):
+    """Rows as ``candidates`` gives them, except rows 2 on: 40 tight clusters of
+    one class, so few candidates are kept and the walk runs past its first pass."""
+    boxes, scores = candidates(rng, b, k)
+    centers = rng.uniform(0, 1280, (40, 2))[rng.randint(0, 40, (b - 2, k))]
+    centers = centers + rng.normal(0, 2, (b - 2, k, 2))
+    boxes[2:] = np.concatenate([centers - 40, centers + 40], -1).astype(np.float32)
+    return boxes, scores
+
+
+def disjoint_candidates(rng, b, k):
+    """Rows of k boxes on a grid, none overlapping, except that every tenth box
+    repeats the one before it; a tenth of the scores invalid. Nearly all are kept."""
+    i = np.arange(k)
+    x, y = (i % 128) * 10.0, (i // 128) * 10.0
+    boxes = np.stack([x, y, x + 8.0, y + 8.0], -1)[None].repeat(b, 0)
+    boxes[:, 9::10] = boxes[:, 8::10][:, :boxes[:, 9::10].shape[1]]
+    scores = rng.uniform(0.001, 1.0, (b, k))
+    scores[rng.uniform(size=(b, k)) < 0.1] = -1.0
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def nan_inf_candidates(rng):
+    """A NaN score (row 2), NaN coordinates (row 1), tied +inf scores, -0.0 and
+    +0.0 scores, a box of NaN area (infinite width, zero height) and a row of
+    identical boxes under tied +inf scores."""
+    boxes, scores = candidates(rng, 4, 200, n_cls=4)
+    scores[0, [5, 17, 40]] = np.inf
+    scores[0, [6, 7]] = np.float32(-0.0)
+    scores[0, [8, 9]] = np.float32(0.0)
+    boxes[0, 10] = [100.0, 100.0, np.inf, 100.0]
+    scores[0, 10] = np.float32(0.99)
+    boxes[1, 3, 1] = np.nan
+    boxes[1, 50:60, 2] = np.nan
+    scores[2, 199] = np.nan
+    boxes[3, :20] = boxes[3, 0]
+    scores[3, :20] = np.inf
+    return boxes, scores
+
+
 def cuda_ms(fn, runs: int) -> float:
     """Median milliseconds of fn() over runs, each timed with CUDA events."""
     import torch
@@ -148,6 +193,28 @@ def cuda_ms(fn, runs: int) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, runs: int) -> float:
+    """Device milliseconds of fn() without the host's launch work: fn captured
+    once in a CUDA graph, then runs replays back to back between two CUDA
+    events, over runs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
 def nms_bound(boxes, scores, keep_valid, max_det: int):
     """Least time for this work: inputs read once and outputs written once over the
     memory rate, against the greedy steps these inputs need over the float32 rate."""
@@ -160,8 +227,51 @@ def nms_bound(boxes, scores, keep_valid, max_det: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def walk_depth(order, n_pos, keep_idx, keep_valid):
+    """Per image, the sorted position after the last kept candidate: how far the
+    walk went (n_pos when it ran out of candidates before max_det)."""
+    depth = []
+    for i in range(keep_idx.shape[0]):
+        n = int(n_pos[i])
+        pos = {int(j): p for p, j in enumerate(order[i, :n].tolist())}
+        kept = [pos[int(j)] for j in keep_idx[i][keep_valid[i]].tolist()]
+        depth.append(max(kept) + 1 if kept else 0)
+    return depth
+
+
+def check_stages(torch, nms_kernel, name, tb, ts, iou, md):
+    """Each stage's kernel against its plain stage on the same input, exactly:
+    the order (n_pos, has_nan, the order and the sorted boxes' bits), the mask's
+    defined words, and the walk's keep set."""
+    order = nms_kernel.nms_order(tb, ts)
+    p_order = nms_kernel.nms_order_plain(tb, ts)
+    torch.cuda.synchronize()
+    if not (torch.equal(order.n_pos, p_order.n_pos) and torch.equal(order.has_nan,
+                                                                    p_order.has_nan)):
+        fail(f"the order stage's n_pos or has_nan differ from the plain stage's on {name}")
+    for i, n in enumerate(order.n_pos.tolist()):
+        same_boxes = torch.equal(order.sorted_boxes[i, :n].view(torch.int32),
+                                 p_order.sorted_boxes[i, :n].view(torch.int32))
+        if not (torch.equal(order.order[i, :n], p_order.order[i, :n]) and same_boxes):
+            fail(f"the order stage differs from the plain stage on {name}, image {i}")
+    mask = nms_kernel.nms_mask(order.sorted_boxes, order.n_pos, iou)
+    p_mask = nms_kernel.nms_mask_plain(order.sorted_boxes, order.n_pos, iou)
+    defined = nms_kernel.mask_defined(order.n_pos, tb.shape[1])
+    torch.cuda.synchronize()
+    bad_words = int((mask[defined] != p_mask[defined]).sum())
+    if bad_words:
+        fail(f"the mask stage differs from the plain stage on {name}: {bad_words} words")
+    idx, valid = nms_kernel.nms_walk(mask, order.order, order.n_pos, order.has_nan, md)
+    p_idx, p_valid = nms_kernel.nms_walk_plain(mask, order.order, order.n_pos,
+                                               order.has_nan, md)
+    if not (torch.equal(idx, p_idx) and torch.equal(valid, p_valid)):
+        fail(f"the walk stage differs from the plain stage on {name}")
+    return order, int(defined.sum())
+
+
 def phase_kernels(torch, nms_kernel):
-    """K1 and K2 against their plain versions on the card, index for index."""
+    """K1 and K2 against their plain versions on the card, index for index, and
+    each of their three stages against its plain stage."""
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     cases = []
@@ -171,9 +281,14 @@ def phase_kernels(torch, nms_kernel):
             cases.append((f"b16_k{k}_iou{iou}", boxes, scores, iou, 300))
     boxes, scores = candidates(rng, 3, 1000)
     cases.append(("ragged_b3_k1000", boxes, scores, 0.45, 300))
+    cases.append(("ragged_b3_k1000_iou0", boxes, scores, 0.0, 300))
     boxes, scores = special_candidates(rng)
     cases.append(("special_b5_k200", boxes, scores, 0.5, 64))
-    # above MAX_CANDIDATES: the device-memory path
+    boxes, scores = nan_inf_candidates(rng)
+    cases.append(("nan_inf_zeros_b4_k200", boxes, scores, 0.5, 64))
+    cases.append(("nan_inf_zeros_b4_k200_iou_negative", boxes, scores, -0.5, 64))
+    boxes, scores = crowded_candidates(rng, 4, 4096)
+    cases.append(("crowded_b4_k4096", boxes, scores, 0.45, 300))  # rows 2, 3: two passes
     boxes, scores = candidates(rng, 16, 8192)
     cases.append(("b16_k8192_iou0.45", boxes, scores, 0.45, 300))
     boxes, scores = candidates(rng, 3, 6001)
@@ -194,18 +309,60 @@ def phase_kernels(torch, nms_kernel):
             if not (torch.equal(idx1, ref_idx[r]) and torch.equal(valid1, ref_valid[r])):
                 fail(f"K2 disagrees with its plain version on {name}, row {r}")
             rows_ok += 1
+        order, defined_words = check_stages(torch, nms_kernel, name, tb, ts, iou, md)
         checked.append({"case": name, "B": int(tb.shape[0]), "k": int(tb.shape[1]), "iou": iou,
-                        "max_det": md, "kept": valid.sum(dim=1).tolist(), "k2_rows": rows_ok})
+                        "max_det": md, "kept": valid.sum(dim=1).tolist(), "k2_rows": rows_ok,
+                        "n_pos": order.n_pos.tolist(), "has_nan": order.has_nan.tolist(),
+                        "walk_depth": walk_depth(order.order, order.n_pos, idx, valid),
+                        "walk_limit": nms_kernel.walk_limit(int(tb.shape[1]), md),
+                        "mask_words_defined": defined_words})
+    # K1 alone at sizes past the kernels' fixed resources: more images than a
+    # grid's y dimension takes, and more kept positions than the walk holds in
+    # shared memory (they then live in keep_idx)
+    limits = []
+    for name, (boxes, scores), iou, md in (
+            ("batch_70000_k64", candidates(rng, 70000, 64), 0.45, 16),
+            ("b2_k16384_max_det16384", disjoint_candidates(rng, 2, 16384), 0.45, 16384)):
+        tb, ts = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+        idx, valid = nms_kernel.batched_greedy_nms(tb, ts, iou, md)
+        ref_idx, ref_valid = nms_kernel.batched_greedy_nms_plain(tb, ts, iou, md)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ref_idx) and torch.equal(valid, ref_valid)):
+            bad = int((idx != ref_idx).sum() + (valid != ref_valid).sum())
+            fail(f"K1 disagrees with its plain version on {name}: {bad} slots")
+        kept = valid.sum(dim=1)
+        limits.append({"case": name, "B": int(tb.shape[0]), "k": int(tb.shape[1]), "iou": iou,
+                       "max_det": md, "kept_min": int(kept.min()), "kept_max": int(kept.max())})
+        del tb, ts, idx, valid, ref_idx, ref_valid
+
     times = {}
     # b16 at k 1024 and 4096 (iou 0.45), b16 at k 8192, b3 at k 6001
-    for name, boxes, scores, iou, md in cases[:4:2] + cases[-2:]:
+    timed = [c for c in cases if c[0] in ("b16_k1024_iou0.45", "b16_k4096_iou0.45",
+                                          "crowded_b4_k4096", "b16_k8192_iou0.45",
+                                          "ragged_b3_k6001")]
+    for name, boxes, scores, iou, md in timed:
         tb, ts = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
-        times[name] = {
-            "K1_ms": cuda_ms(lambda: nms_kernel.batched_greedy_nms(tb, ts, iou, md), 30),
-            "K1_plain_ms": cuda_ms(lambda: nms_kernel.batched_greedy_nms_plain(tb, ts, iou, md), 20),
-            "K2_ms": cuda_ms(lambda: nms_kernel.greedy_nms(tb[0], ts[0], iou, md), 30),
+        order = nms_kernel.nms_order(tb, ts)
+        mask = nms_kernel.nms_mask(order.sorted_boxes, order.n_pos, iou)
+        b, k = ts.shape
+        calls = {
+            "K1": lambda: nms_kernel.batched_greedy_nms(tb, ts, iou, md),
+            "K2": lambda: nms_kernel.greedy_nms(tb[0], ts[0], iou, md),
+            "order": lambda: nms_kernel.nms_order(tb, ts),
+            "mask": lambda: nms_kernel.nms_mask(order.sorted_boxes, order.n_pos, iou),
+            "walk": lambda: nms_kernel.nms_walk(mask, order.order, order.n_pos, order.has_nan,
+                                                md),
         }
-    emit("kernels", index_exact=True, cases=checked, median_ms_generated_inputs=times,
+        times[name] = {
+            **{f"{n}_ms": cuda_ms(fn, 30) for n, fn in calls.items()},
+            **{f"{n}_device_ms": graph_ms(fn, 30) for n, fn in calls.items()},
+            "K1_plain_ms": cuda_ms(lambda: nms_kernel.batched_greedy_nms_plain(tb, ts, iou, md), 20),
+            "mask_bytes": mask.numel() * mask.element_size(),
+            "scratch_bytes": nms_kernel.scratch_bytes(b, k),
+        }
+        del order, mask
+    emit("kernels", index_exact=True, stages_exact=True, cases=checked, limits=limits,
+         median_ms_generated_inputs=times,
          kernels=[{"id": kid, "fn": fn, "status": "ported", "source": src}
                   for kid, fn, src in KERNELS.values()])
 
@@ -341,6 +498,20 @@ def phase_serve(torch, gpu_line):
     if max_box_err > 1e-3 or max_score_err > 1e-5:
         fail(f"boxes {max_box_err} px / scores {max_score_err} beyond 1e-3 px / 1e-5")
 
+    # -- K1 index for index on what the serving path gave it at conf 0.25 (k 1024)
+    b25, s25, iou25, md25 = captured[0.25]
+    k1_25 = nms_kernel.batched_greedy_nms(b25, s25, iou25, md25)
+    p_25 = nms_kernel.batched_greedy_nms_plain(b25, s25, iou25, md25)
+    if not (torch.equal(k1_25[0], p_25[0]) and torch.equal(k1_25[1], p_25[1])):
+        fail("K1 disagrees with its plain version on the serving path's conf 0.25 input")
+    conf025 = dict(shape=list(s25.shape), kept=k1_25[1].sum(dim=1).tolist(),
+                   ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms(b25, s25, iou25, md25), 30),
+                   device_ms=graph_ms(lambda: nms_kernel.batched_greedy_nms(
+                       b25, s25, iou25, md25), 30),
+                   plain_ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms_plain(
+                       b25, s25, iou25, md25), 20))
+    conf025["bound_ms"], conf025["bound_by"] = nms_bound(b25, s25, k1_25[1], md25)
+
     # -- the kernels timed on the inputs the serving path gave K1 at k = 4096 ----
     boxes, scores, iou, md = captured[0.001]
     k1_idx, k1_valid = nms_kernel.batched_greedy_nms(boxes, scores, iou, md)
@@ -349,6 +520,19 @@ def phase_serve(torch, gpu_line):
     k1_err = int((k1_idx - p_idx).abs().max()) + int((k1_valid != p_valid).sum())
     k2_err = int((k2_idx - p_idx[0]).abs().max()) + int((k2_valid != p_valid[0]).sum())
     k1_bound, k1_by = nms_bound(boxes, scores, k1_valid, md)
+    order = nms_kernel.nms_order(boxes, scores)
+    depth = walk_depth(order.order, order.n_pos, k1_idx, k1_valid)
+    mask = nms_kernel.nms_mask(order.sorted_boxes, order.n_pos, iou)
+    # K1 runs the order and a walk that stops at max_det, as these do alone; its
+    # mask is the first pass's square only where the walk ends inside it
+    device_ms = {"K1": graph_ms(lambda: nms_kernel.batched_greedy_nms(boxes, scores, iou, md), 30),
+                 "K2": graph_ms(lambda: nms_kernel.greedy_nms(boxes[0], scores[0], iou, md), 30),
+                 "order": graph_ms(lambda: nms_kernel.nms_order(boxes, scores), 30),
+                 "walk": graph_ms(lambda: nms_kernel.nms_walk(mask, order.order, order.n_pos,
+                                                              order.has_nan, md), 30),
+                 "mask_one_pass": graph_ms(lambda: nms_kernel.nms_mask(
+                     order.sorted_boxes, order.n_pos, iou), 30)}
+    del order, mask
     k2_bound, k2_by = nms_bound(boxes[0], scores[0], k2_valid, md)
     summary = [
         dict(name="batched_greedy_nms", path="serve",
@@ -378,7 +562,8 @@ def phase_serve(torch, gpu_line):
          launches_per_request={n: c / len(requests) for n, c in serve_launches.items()},
          plain_nms_max_box_err_px=max_box_err,
          plain_nms_max_score_err=max_score_err, card=gpu_line,
-         kept_on_timed_input=k1_valid.sum(dim=1).tolist(),
+         kept_on_timed_input=k1_valid.sum(dim=1).tolist(), walk_depth_on_timed_input=depth,
+         k1_on_conf025_input=conf025, device_ms_on_timed_input=device_ms,
          stage_ms={str(c): stage_ms(torch, det, batch, c) for c in (0.25, 0.001)})
     return summary
 
