@@ -48,16 +48,43 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            split into its stages
   serve_fused_csp
            skyeye_s rebuilt in the fused-CSP serving mode (``fused_csp_detector``:
-           BN folded, csp1 on K3), the same 3 requests (K3's launches counted over
-           just these, the block's packed weights prepared once and reused); its
+           BN folded, csp1 on K3), the same 3 requests (K3's and K1's launches
+           counted over just these, the block's packed weights prepared once and
+           reused); its
            logits held against the canonical detector on the folded weights; K3
            timed on the input and packed weights the requests gave it (beside its
            plain version and the cuDNN bf16 canonical CSPBlock, as context); K3b,
            the same kernel under the v1 name, called once on that input
+  serve_enhanced
+           SkyEyeDetector("skyeye_l_enhanced") at full width and depth (the
+           cross-layer attention P5 -> P4 -> P3), float32 with TF32 off, the same
+           3 requests (K1's launches counted over just these); K1 index for index
+           against the plain NMS on the inputs the requests gave it; one frame's
+           logits held against the same module run in float64 on the card; one
+           request split into its stages
+  serve_bf16
+           skyeye_s with ``dtype=torch.bfloat16``, then the same detector rebuilt
+           whole in bf16 in the fused-CSP mode, each on the same 3 requests (K1's
+           and K3's launches counted over just these); each one's logits held
+           against the float32 detector on the same weights, K1 index for index
+           against the plain NMS on the inputs the requests gave it, K3 timed
+           and held against its plain version on the bf16 input it was given;
+           one request of each split into its stages
+  serve_tiled
+           ``ops.tiling.detect_tiled`` as the JAX bench configures it: skyeye_s in
+           bf16 with BN folded, tiles of 1280 at overlap 0.2, conf 0.25, iou 0.45,
+           3 requests of 2 uint8 2160x3840 frames (16 tiles a request); K1 twice
+           a request (the tiles' NMS at B 16, k 1024; the merge at B 2, k 2400),
+           each launch's input held index for index against the plain NMS, and
+           K1 timed on the merge's input
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power-limit line,
-and, last, ``{"ok": true, "device": {...}}``. A watchdog ends a hung run with a
-traceback and a non-zero exit. Imports torch, numpy and the port only.
+The serving phases reach K1 through the facade's default cut: late decode
+(``ops/late_decode.py``), per level on the raw logits, k = 1152 at conf 0.25 and
+4096 at 0.001. Then a ``{"kernels": [...]}`` line (a kernel's ``launches`` summed
+over the paths in ``launches_by_path``), the ``nvidia-smi`` name and
+power-limit line, and, last, ``{"ok": true, "device": {...}}``. A watchdog ends
+a hung run with a traceback and a non-zero exit. Imports torch, numpy and the
+port only.
 """
 from __future__ import annotations
 
@@ -96,6 +123,9 @@ KERNELS = {  # wrapper -> (id, the TPU kernel it replaces, its source here)
     "flash_attention": ("K4", "skyeye_tpu/ops/pallas/attention_kernel.py:74", ATTENTION_SOURCE),
 }
 REQUESTS = [0.25, 0.001, 0.001]  # conf of the 3 requests each serving phase sends
+# A float32 model (TF32 off) against the same module in float64: within this
+# share of the largest |logit|
+LOGIT_VS_FLOAT64_REL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -409,12 +439,73 @@ def stage_ms(torch, det, batch, conf: float):
     return marks
 
 
+def serve_timed(det, batch, kernel_modules):
+    """The 3 requests through ``det``, nothing patched, each timed on the host
+    clock: every launch count set to 0 just before, read just after."""
+    for m in kernel_modules:
+        m.reset_launch_counts()
+    served, ms = [], []
+    for conf in REQUESTS:
+        det.conf_thres = conf
+        t0 = time.perf_counter()
+        served.append(det(batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {}
+    for m in kernel_modules:
+        launches.update(m.LAUNCHES)
+    return served, ms, launches
+
+
+def record_k1_inputs(run):
+    """Every input K1 is handed while ``run()`` runs (an untimed rerun), in order."""
+    from skyeye_tpu_torch.ops import nms as port_nms
+
+    real, inputs = port_nms.greedy_nms_batched, []
+
+    def recording(offset_boxes, scores, iou_thres, max_det):
+        inputs.append((offset_boxes.contiguous(), scores.contiguous(), iou_thres, max_det))
+        return real(offset_boxes, scores, iou_thres, max_det)
+
+    with mock.patch.object(port_nms, "greedy_nms_batched", recording):
+        run()
+    return inputs
+
+
+def hold_k1(torch, nms_kernel, inputs, where: str):
+    """K1 index for index against the plain NMS on each input; the kept counts."""
+    kept = []
+    for boxes, scores, iou, md in inputs:
+        idx, valid = nms_kernel.batched_greedy_nms(boxes, scores, iou, md)
+        p_idx, p_valid = nms_kernel.batched_greedy_nms_plain(boxes, scores, iou, md)
+        if not (torch.equal(idx, p_idx) and torch.equal(valid, p_valid)):
+            fail(f"K1 disagrees with the plain NMS on {where}'s input {list(scores.shape)}")
+        kept.append({"shape": list(scores.shape), "kept": valid.sum(dim=1).tolist()})
+    return kept
+
+
+def rerun_k1_inputs(det, batch):
+    """K1's input at each distinct conf of the requests, from an untimed rerun."""
+    def run():
+        for conf in sorted(set(REQUESTS)):
+            det.conf_thres = conf
+            det(batch)
+    return record_k1_inputs(run)
+
+
+def letterboxed(torch, batch, size: int = 1280):
+    """The frames as the facade hands them to its model: RGB, letterboxed, /255,
+    an NCHW view of NHWC memory on the card (float32)."""
+    from skyeye_tpu_torch.ops.letterbox import letterbox_batch
+
+    x = torch.from_numpy(np.stack([f[:, :, ::-1] for f in batch])).cuda()
+    return letterbox_batch(x, (size, size)).permute(0, 3, 1, 2) / 255.0
+
+
 def phase_serve(torch, gpu_line):
     from skyeye_tpu_torch import SkyEyeDetector
     from skyeye_tpu_torch.models.head import decode_predictions
     from skyeye_tpu_torch.ops import nms as port_nms
     from skyeye_tpu_torch.ops import nms_kernel
-    from skyeye_tpu_torch.ops.letterbox import letterbox_batch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -427,44 +518,21 @@ def phase_serve(torch, gpu_line):
     det(batch)  # warm-up: cuDNN handles and workspaces
     torch.cuda.synchronize()
 
-    # -- the serving path, nothing patched: counts from 0 just before, read just after
-    nms_kernel.reset_launch_counts()
-    served, ms = [], []
-    for conf in requests:
-        det.conf_thres = conf
-        t0 = time.perf_counter()
-        served.append(det(batch))
-        ms.append((time.perf_counter() - t0) * 1e3)
-    serve_launches = dict(nms_kernel.LAUNCHES)
-    # ---------------------------------------------------------------------------
-
+    served, ms, serve_launches = serve_timed(det, batch, (nms_kernel,))
     if serve_launches["batched_greedy_nms"] == 0:
         fail("the serving path never launched batched_greedy_nms")
     for r in served:
         check_detections(r, batch[0].shape[:2], det.config.nc)
 
-    # -- what the serving path hands K1, from an untimed rerun of the same requests
-    real_batched = port_nms.greedy_nms_batched
-    captured = {}  # conf -> (offset boxes, scores, iou, max_det)
-
-    def recording(offset_boxes, scores, iou_thres, max_det):
-        captured[det.conf_thres] = (offset_boxes.contiguous(), scores.contiguous(),
-                                    iou_thres, max_det)
-        return real_batched(offset_boxes, scores, iou_thres, max_det)
-
-    with mock.patch.object(port_nms, "greedy_nms_batched", recording):
-        for conf in sorted(set(requests)):
-            det.conf_thres = conf
-            det(batch)
+    # -- what the serving path hands K1 at each conf (offset boxes, scores, iou, max_det)
+    captured = dict(zip(sorted(set(requests)), rerun_k1_inputs(det, batch)))
     cands = [(captured[c][1] > 0).sum(dim=1).tolist() for c in requests]
     if sum(sum(c) for c in cands) == 0:
         fail("no candidate reached K1")
 
     # -- the per-image functional path: decode, then nms_single on each image ---
     with torch.inference_mode():
-        x = torch.from_numpy(np.stack([f[:, :, ::-1] for f in batch])).cuda()
-        x = letterbox_batch(x, (1280, 1280)) / 255.0
-        dec = decode_predictions(det.model(x.permute(0, 3, 1, 2)), det.config.anchors,
+        dec = decode_predictions(det.model(letterboxed(torch, batch)), det.config.anchors,
                                  (1280, 1280), anchor_major=False)
         torch.cuda.synchronize()
         nms_kernel.reset_launch_counts()
@@ -766,64 +834,34 @@ def phase_serve_transformer(torch, gpu_line):
     from skyeye_tpu_torch import SkyEyeDetector
     from skyeye_tpu_torch.models import attention as port_attention
     from skyeye_tpu_torch.ops import attention_kernel, nms_kernel
-    from skyeye_tpu_torch.ops import nms as port_nms
-    from skyeye_tpu_torch.ops.letterbox import letterbox_batch
 
     det = SkyEyeDetector("skyeye_l_transformer", img_size=1280, device="cuda", seed=0)
     batch = frames(seed=1)
     det(batch)  # warm-up: cuDNN handles and workspaces
     torch.cuda.synchronize()
 
-    # -- the serving path, nothing patched: counts from 0 just before, read just after
-    nms_kernel.reset_launch_counts()
-    attention_kernel.reset_launch_counts()
-    served, ms = [], []
-    for conf in REQUESTS:
-        det.conf_thres = conf
-        t0 = time.perf_counter()
-        served.append(det(batch))
-        ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {**nms_kernel.LAUNCHES, **attention_kernel.LAUNCHES}
-    # ---------------------------------------------------------------------------
-
+    served, ms, launches = serve_timed(det, batch, (nms_kernel, attention_kernel))
     for name in ("flash_attention", "batched_greedy_nms"):
         if launches[name] == 0:
             fail(f"the transformer's serving path never launched {name}")
     for r in served:
         check_detections(r, batch[0].shape[:2], det.config.nc)
 
-    # -- what the requests hand K4 and K1, from an untimed rerun
-    real_flash, real_batched = port_attention.flash_attention, port_nms.greedy_nms_batched
-    k4_inputs, k1_inputs = [], {}
+    # -- what the requests hand K4 and K1, from an untimed rerun; K1 against the
+    # plain NMS on those inputs, index for index
+    real_flash, k4_inputs = port_attention.flash_attention, []
 
     def record_flash(q, k, v):
         k4_inputs[:] = [(q, k, v)]
         return real_flash(q, k, v)
 
-    def record_nms(offset_boxes, scores, iou_thres, max_det):
-        k1_inputs[det.conf_thres] = (offset_boxes.contiguous(), scores.contiguous(),
-                                     iou_thres, max_det)
-        return real_batched(offset_boxes, scores, iou_thres, max_det)
-
-    with mock.patch.object(port_attention, "flash_attention", record_flash), \
-            mock.patch.object(port_nms, "greedy_nms_batched", record_nms):
-        for conf in sorted(set(REQUESTS)):
-            det.conf_thres = conf
-            det(batch)
-
-    # -- K1 against the plain NMS on those inputs, index for index
-    kept = {}
-    for conf, (boxes, scores, iou, md) in k1_inputs.items():
-        idx, valid = nms_kernel.batched_greedy_nms(boxes, scores, iou, md)
-        p_idx, p_valid = nms_kernel.batched_greedy_nms_plain(boxes, scores, iou, md)
-        if not (torch.equal(idx, p_idx) and torch.equal(valid, p_valid)):
-            fail(f"K1 disagrees with the plain NMS on the transformer's inputs at conf {conf}")
-        kept[str(conf)] = valid.sum(dim=1).tolist()
+    with mock.patch.object(port_attention, "flash_attention", record_flash):
+        k1_inputs = rerun_k1_inputs(det, batch)
+    kept = hold_k1(torch, nms_kernel, k1_inputs, "serve_transformer")
 
     # -- the logits with K4 against the same model with attention_reference put in
     with torch.inference_mode():
-        x = torch.from_numpy(np.stack([f[:, :, ::-1] for f in batch])).cuda()
-        x = letterbox_batch(x, (1280, 1280)).permute(0, 3, 1, 2) / 255.0
+        x = letterboxed(torch, batch)
         got = det.model(x)
         with mock.patch.object(port_attention, "flash_attention",
                                attention_kernel.attention_reference):
@@ -863,6 +901,8 @@ def phase_serve_transformer(torch, gpu_line):
     del ref64
     del q, k, v, out, ref, sdpa, k4_inputs[:], k1_inputs
 
+    k1 = dict(name="batched_greedy_nms", path="serve_transformer",
+              launches=launches["batched_greedy_nms"])
     emit("serve_transformer", model="skyeye_l_transformer", img_size=1280, batch=len(batch),
          frame=[1080, 1920], dtype="float32", tf32=False, conf=REQUESTS,
          ms_per_request=ms, images_per_s=[len(batch) / (t / 1e3) for t in ms],
@@ -876,7 +916,7 @@ def phase_serve_transformer(torch, gpu_line):
          card=gpu_line, stage_ms={"0.001": stage_ms(torch, det, batch, 0.001)})
     del det
     torch.cuda.empty_cache()
-    return [k4]
+    return [k4, k1]
 
 
 def phase_serve_fused_csp(torch, gpu_line):
@@ -884,8 +924,7 @@ def phase_serve_fused_csp(torch, gpu_line):
     from skyeye_tpu_torch import SkyEyeDetector
     from skyeye_tpu_torch.models.blocks import CSPBlock
     from skyeye_tpu_torch.models.detector import SkyEyeDetectorModule, fused_csp_detector
-    from skyeye_tpu_torch.ops import csp_kernel, fused_csp
-    from skyeye_tpu_torch.ops.letterbox import letterbox_batch
+    from skyeye_tpu_torch.ops import csp_kernel, fused_csp, nms_kernel
     from skyeye_tpu_torch.utils.checkpoint import fuse_conv_bn
 
     det = SkyEyeDetector("skyeye_s", img_size=1280, device="cuda", seed=0)
@@ -899,19 +938,10 @@ def phase_serve_fused_csp(torch, gpu_line):
     torch.cuda.synchronize()
     prepared = det.model.backbone.csp1.prepared
 
-    # -- the serving path, nothing patched: counts from 0 just before, read just after
-    csp_kernel.reset_launch_counts()
-    served, ms = [], []
-    for conf in REQUESTS:
-        det.conf_thres = conf
-        t0 = time.perf_counter()
-        served.append(det(batch))
-        ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(csp_kernel.LAUNCHES)
-    # ---------------------------------------------------------------------------
-
-    if launches["csp_fused_v2"] == 0:
-        fail("the fused-CSP serving path never launched csp_fused_v2")
+    served, ms, launches = serve_timed(det, batch, (csp_kernel, nms_kernel))
+    for name in ("csp_fused_v2", "batched_greedy_nms"):
+        if launches[name] == 0:
+            fail(f"the fused-CSP serving path never launched {name}")
     if det.model.backbone.csp1.prepared is not prepared:
         fail("the fused CSP block prepared its packed weights again between requests")
     for r in served:
@@ -926,8 +956,7 @@ def phase_serve_fused_csp(torch, gpu_line):
         return real(x, weights, num_blocks, tile_rows)
 
     with torch.inference_mode():
-        x = torch.from_numpy(np.stack([f[:, :, ::-1] for f in batch])).cuda()
-        x = letterbox_batch(x, (1280, 1280)).permute(0, 3, 1, 2) / 255.0
+        x = letterboxed(torch, batch)
         with mock.patch.object(fused_csp, "csp_fused_v2", record):
             got = det.model(x)
         want = canonical(x)
@@ -973,7 +1002,7 @@ def phase_serve_fused_csp(torch, gpu_line):
         ]
         # context only, not a port: the canonical CSPBlock on cuDNN, bf16, channels_last,
         # on the same folded weights and input
-        block = CSPBlock(c, weights.c_out, nb)
+        block = CSPBlock(c, weights.c_out, nb, dtype=torch.bfloat16)
         block.load_state_dict({k[len("backbone.csp1."):]: v for k, v in folded.items()
                                if k.startswith("backbone.csp1.")}, strict=True)
         block = block.eval().cuda().to(torch.bfloat16).to(memory_format=torch.channels_last)
@@ -994,7 +1023,253 @@ def phase_serve_fused_csp(torch, gpu_line):
         s["cudnn_bf16_csp_block_ms"] = cudnn_ms
     del det, canonical, block, captured[:]
     torch.cuda.empty_cache()
+    return summary + [dict(name="batched_greedy_nms", path="serve_fused_csp",
+                           launches=launches["batched_greedy_nms"])]
+
+
+def phase_serve_enhanced(torch, gpu_line):
+    """skyeye_l_enhanced at full width and depth, float32: K1 on every request."""
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.models.detector import SkyEyeDetectorModule
+    from skyeye_tpu_torch.ops import nms_kernel
+
+    det = SkyEyeDetector("skyeye_l_enhanced", img_size=1280, device="cuda", seed=0)
+    batch = frames(seed=1)
+    det(batch)  # warm-up: cuDNN handles and workspaces
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    served, ms, launches = serve_timed(det, batch, (nms_kernel,))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches["batched_greedy_nms"] == 0:
+        fail("the enhanced serving path never launched batched_greedy_nms")
+    for r in served:
+        check_detections(r, batch[0].shape[:2], det.config.nc)
+    kept = hold_k1(torch, nms_kernel, rerun_k1_inputs(det, batch), "serve_enhanced")
+
+    # -- the two cross-attentions alone, on the neck's outputs for the batch
+    m = det.model
+    with torch.inference_mode():
+        p3, p4, p5 = m.neck(m.backbone(letterboxed(torch, batch)))
+        p4_new = m.cross_attn_p5_p4(p4, p5) + p4
+        cross_ms = {"p5_p4": cuda_ms(lambda: m.cross_attn_p5_p4(p4, p5), 5),
+                    "p4_p3": cuda_ms(lambda: m.cross_attn_p4_p3(p3, p4_new), 5)}
+    del p3, p4, p5, p4_new
+
+    # -- one frame's logits against the same module in float64 on the card
+    with torch.inference_mode():
+        x = letterboxed(torch, batch[:1])
+        got = det.model(x)
+        m64 = SkyEyeDetectorModule(det.config, dtype=torch.float64)
+        m64.load_state_dict(det.model.state_dict(), strict=True)
+        m64 = m64.double().eval().cuda()
+        want = m64(x.double())
+    max_logit = max(float(w.abs().max()) for w in want)
+    logit_err = max(float((g.double() - w).abs().max()) for g, w in zip(got, want))
+    # float32 without TF32 through about 90 convs and two cross-attentions
+    tol = LOGIT_VS_FLOAT64_REL * max_logit
+    if not all(bool(torch.isfinite(g).all()) for g in got) or logit_err > tol:
+        fail(f"enhanced logits differ from float64's by {logit_err} > {tol}")
+    del x, got, want, m64
+
+    emit("serve_enhanced", model="skyeye_l_enhanced", img_size=1280, batch=len(batch),
+         frame=[1080, 1920], dtype="float32", tf32=False, conf=REQUESTS, ms_per_request=ms,
+         images_per_s=[len(batch) / (t / 1e3) for t in ms],
+         detections_per_image=[[len(d) for d in r.xyxy] for r in served],
+         launches=launches, peak_memory_gib=peak_gb, cross_attention_ms=cross_ms,
+         k1_on_rerun=kept, logit_max_abs_err_vs_float64=logit_err,
+         max_abs_logit=max_logit, tolerance=tol, card=gpu_line,
+         stage_ms={"0.001": stage_ms(torch, det, batch, 0.001)})
+    del det
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="serve_enhanced",
+                 launches=launches["batched_greedy_nms"])]
+
+
+def phase_serve_bf16(torch, gpu_line):
+    """skyeye_s in bf16, then its fused-CSP mode whole in bf16: K1 on every
+    request, K3 on every request of the second."""
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.models.detector import fused_csp_detector
+    from skyeye_tpu_torch.ops import csp_kernel, fused_csp, nms_kernel
+
+    reference = SkyEyeDetector("skyeye_s", img_size=1280, device="cuda", seed=0)
+    det = SkyEyeDetector("skyeye_s", img_size=1280, dtype=torch.bfloat16, device="cuda",
+                         seed=0)
+    batch = frames(seed=1)
+    with torch.inference_mode():
+        x = letterboxed(torch, batch)
+        want = reference.model(x)
+    del reference
+    out, summary = {}, []
+    for mode in ("bf16", "bf16_fused_csp"):
+        if mode == "bf16_fused_csp":
+            det.model = fused_csp_detector(det.model)
+        det(batch)  # warm-up
+        torch.cuda.synchronize()
+        served, ms, launches = serve_timed(det, batch, (nms_kernel, csp_kernel))
+        needed = ("batched_greedy_nms",) + (("csp_fused_v2",) if "fused" in mode else ())
+        for name in needed:
+            if launches[name] == 0:
+                fail(f"the {mode} serving path never launched {name}")
+        for r in served:
+            check_detections(r, batch[0].shape[:2], det.config.nc)
+        kept = hold_k1(torch, nms_kernel, rerun_k1_inputs(det, batch), f"serve_{mode}")
+
+        # -- logits against the float32 detector on the same weights; K3's input
+        real, captured, block_input = fused_csp.csp_fused_v2, [], []
+
+        def record(xh, weights, num_blocks, tile_rows):
+            captured[:] = [(xh, weights, num_blocks, tile_rows)]
+            return real(xh, weights, num_blocks, tile_rows)
+
+        hook = det.model.backbone.csp1.register_forward_pre_hook(lambda m, args: block_input.append(
+            (str(args[0].dtype), args[0].is_contiguous(memory_format=torch.channels_last))))
+        with torch.inference_mode(), mock.patch.object(fused_csp, "csp_fused_v2", record):
+            got = det.model(x)
+        hook.remove()
+        levels = []
+        for g, w in zip(got, want):
+            err, limit = float((g.float() - w).abs().max()), 0.05 * float(w.abs().max()) + 1e-2
+            if g.dtype != torch.bfloat16 or not bool(torch.isfinite(g).all()) or err > limit:
+                fail(f"{mode} logits ({g.dtype}) differ from the float32 detector's: "
+                     f"{err} > {limit}")
+            levels.append({"max_abs_err": err, "limit": limit})
+        del got
+        out[mode] = dict(ms_per_request=ms, images_per_s=[len(batch) / (t / 1e3) for t in ms],
+                         detections_per_image=[[len(d) for d in r.xyxy] for r in served],
+                         launches=launches, k1_on_rerun=kept, logits_vs_float32=levels,
+                         stage_ms={"0.001": stage_ms(torch, det, batch, 0.001)})
+        summary.append(dict(name="batched_greedy_nms", path=f"serve_{mode}",
+                            launches=launches["batched_greedy_nms"]))
+        if captured:  # K3 on the bf16 activations the bf16 model gave it
+            xh, weights, nb, tile_rows = captured[0]
+            with torch.inference_mode():
+                k3 = csp_kernel.csp_fused_v2(xh, weights, nb, tile_rows)
+                ref = csp_kernel.csp_fused_plain(xh, weights, nb)
+                err = float((k3.float() - ref.float()).abs().max())
+                if xh.dtype != torch.bfloat16 or err > 0.02 * float(ref.float().abs().max()) + 1e-3:
+                    fail(f"K3 on the bf16 model's input ({xh.dtype}): {err} from its plain version")
+                # the block's input: its dtype and whether it was channels-last
+                # already (then K3 reads it with no copy)
+                out[mode]["k3"] = dict(shape=list(xh.shape), block_input=block_input,
+                                       max_abs_err=err,
+                                       ms=cuda_ms(lambda: csp_kernel.csp_fused_v2(
+                                           xh, weights, nb, tile_rows), 20),
+                                       plain_ms=cuda_ms(lambda: csp_kernel.csp_fused_plain(
+                                           xh, weights, nb), 5))
+            summary.append(dict(name="csp_fused_v2", path=f"serve_{mode}",
+                                launches=launches["csp_fused_v2"]))
+            del xh, weights, k3, ref, captured[:]
+    emit("serve_bf16", model="skyeye_s", img_size=1280, batch=len(batch), frame=[1080, 1920],
+         dtype="bfloat16", conf=REQUESTS, card=gpu_line, **out)
+    del det, x, want
+    torch.cuda.empty_cache()
     return summary
+
+
+def tiled_frames(seed: int, n: int = 2):
+    """Blocky seeded uint8 RGB frames, 2160x3840."""
+    rng = np.random.RandomState(seed)
+    coarse = rng.randint(0, 256, (n, 68, 120, 3), dtype=np.uint8)
+    return np.ascontiguousarray(coarse.repeat(32, axis=1).repeat(32, axis=2)[:, :2160])
+
+
+def phase_serve_tiled(torch, gpu_line):
+    """Tiled 4K inference (skyeye_s, bf16, BN folded): K1 twice a request."""
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.ops import nms_kernel
+    from skyeye_tpu_torch.ops.tiling import detect_tiled, tile_grid
+
+    tile, overlap, conf, iou = 1280, 0.2, 0.25, 0.45
+    det = SkyEyeDetector("skyeye_s", img_size=tile, dtype=torch.bfloat16, device="cuda", seed=0)
+    module, anchors = det.model, det.config.anchors
+    clips = [tiled_frames(seed=10 + i) for i in range(len(REQUESTS))]
+    n_tiles = tile_grid(clips[0].shape[1:3], tile, overlap).shape[0] * len(clips[0])
+
+    def request(frames_np, mark=None):
+        x = torch.from_numpy(frames_np).cuda()
+        if mark:
+            mark("host_to_device")
+        d, n = detect_tiled(module, anchors, x, tile=tile, overlap=overlap, conf_thres=conf,
+                            iou_thres=iou, on_stage=mark)
+        out = d.cpu().numpy(), n.cpu().numpy()
+        if mark:
+            mark("device_to_host")
+        return out
+
+    request(clips[0])  # warm-up
+    torch.cuda.synchronize()
+    nms_kernel.reset_launch_counts()
+    results, ms = [], []
+    for clip in clips:
+        t0 = time.perf_counter()
+        results.append(request(clip))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(nms_kernel.LAUNCHES)
+    if launches["batched_greedy_nms"] != 2 * len(clips):
+        fail(f"tiled requests launched K1 {launches['batched_greedy_nms']} times, "
+             f"not twice each")
+    for d, n in results:  # boxes are not clipped to the frame, as in JAX
+        for i, rows in enumerate(d):
+            rows = rows[: n[i]]
+            if not np.isfinite(rows).all() or (len(rows) and (
+                    rows[:, 4].min() <= conf or rows[:, 4].max() > 1
+                    or rows[:, 5].min() < 0 or rows[:, 5].max() >= det.config.nc)):
+                fail("tiled detections outside the score range or the class range")
+
+    stages = {}  # one request split into stages (host clock, a synchronize at each)
+    for _ in range(2):  # the second of two passes, so nothing is cold
+        t, stages = time.perf_counter(), {}
+
+        def mark(name):
+            nonlocal t
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[name] = (now - t) * 1e3
+            t = now
+
+        t0 = time.perf_counter()
+        request(clips[1], mark)
+        stages["request"] = (time.perf_counter() - t0) * 1e3
+
+    inputs = record_k1_inputs(lambda: request(clips[0]))
+    shapes = [list(s.shape) for _, s, _, _ in inputs]
+    if shapes != [[n_tiles, 1024], [len(clips[0]), n_tiles // len(clips[0]) * 300]]:
+        fail(f"K1's inputs on the tiled path are {shapes}")
+    kept = hold_k1(torch, nms_kernel, inputs, "serve_tiled")
+    timed = {}
+    for name, (boxes, scores, iou_, md) in zip(("tiles", "merge"), inputs):
+        _, valid = nms_kernel.batched_greedy_nms(boxes, scores, iou_, md)
+        bound, by = nms_bound(boxes, scores, valid, md)
+        timed[name] = dict(
+            shape=list(scores.shape), positive=(scores > 0).sum(dim=1).tolist(),
+            ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms(boxes, scores, iou_, md), 30),
+            device_ms=graph_ms(lambda: nms_kernel.batched_greedy_nms(boxes, scores, iou_, md), 30),
+            plain_ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms_plain(
+                boxes, scores, iou_, md), 20),
+            bound_ms=bound, bound_by=by)
+    emit("serve_tiled", model="skyeye_s", dtype="bfloat16", bn_folded=True, tile=tile,
+         overlap=overlap, conf=conf, iou=iou, frames_per_request=len(clips[0]),
+         frame=list(clips[0].shape[1:3]), tiles_per_request=n_tiles, ms_per_request=ms,
+         frames_per_s=[len(clips[0]) / (t / 1e3) for t in ms],
+         detections_per_frame=[n.tolist() for _, n in results], launches=launches,
+         k1_on_rerun=kept, k1_timed=timed, stage_ms=stages, card=gpu_line)
+    del det, module, inputs
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="serve_tiled",
+                 launches=launches["batched_greedy_nms"])]
+
+
+def merge_by_kernel(entries):
+    """One entry per kernel: the first one's numbers, ``launches`` summed over
+    every path's entry and ``launches_by_path`` listing them."""
+    merged = {}
+    for e in entries:
+        first = merged.setdefault(e["name"], dict(e, launches=0, launches_by_path={}))
+        first["launches_by_path"][e["path"]] = e["launches"]
+        first["launches"] += e["launches"]
+    return list(merged.values())
 
 
 def main() -> int:
@@ -1032,13 +1307,17 @@ def main() -> int:
     summary = phase_serve(torch, gpu_line)
     summary += phase_serve_transformer(torch, gpu_line)
     summary += phase_serve_fused_csp(torch, gpu_line)
+    summary += phase_serve_enhanced(torch, gpu_line)
+    summary += phase_serve_bf16(torch, gpu_line)
+    summary += phase_serve_tiled(torch, gpu_line)
+    summary = merge_by_kernel(summary)
     for s in summary:
         kid, replaces, source = KERNELS[s["name"]]
         s.update(id=kid, route="cuda", source=source, replaces=replaces)
     summary.sort(key=lambda s: s["id"])
 
-    keys = ("id", "name", "route", "source", "replaces", "path", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("id", "name", "route", "source", "replaces", "path", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: s[k] for k in keys} for s in summary]}), flush=True)
     print(gpu_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

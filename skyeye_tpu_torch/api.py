@@ -1,14 +1,18 @@
 """Serving API: ``SkyEyeDetector`` facade and ``Results`` container.
 
 Port of the serving part of ``skyeye_tpu/api.py``: uint8 frames -> device
-letterbox and /255 -> detector -> decode -> exact candidate cut -> greedy NMS
-(one launch of the hand-written kernel per batch) -> boxes rescaled to each
-frame. Frames are grouped by shape and run in power-of-two batch buckets.
-Everything runs on the device the detector was built for; CUDA is the default.
+letterbox and /255 -> detector (in its ``dtype``) -> candidate cut -> greedy
+NMS (one launch of the hand-written kernel per batch) -> boxes rescaled to each
+frame. The single-label default cuts on the raw logits per level and decodes
+only the survivors (``ops/late_decode.py``); ``approx_topk=False`` or
+``multi_label`` decodes everything and takes one global cut. Frames are grouped
+by shape and run in power-of-two batch buckets. Everything runs on the device
+the detector was built for; CUDA is the default.
 """
 from __future__ import annotations
 
 import time
+from pathlib import Path
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -17,8 +21,10 @@ import torch
 from .config import ModelConfig
 from .models.detector import create_detector
 from .models.head import decode_predictions
+from .ops.late_decode import topk_candidates
 from .ops.letterbox import letterbox_batch, letterbox_params
-from .ops.nms import nms_batched, serving_max_nms
+from .ops.nms import nms_batched, serving_max_nms, suppress_candidates_batched
+from .utils.checkpoint import fuse_conv_bn, load_model
 from .utils.general import LOGGER, check_img_size, resolve_device
 
 
@@ -66,27 +72,52 @@ class Results:
 
 
 class SkyEyeDetector:
-    """User-facing detector: build from a config with seeded weights, or load a
-    ``state_dict`` (e.g. from ``utils.checkpoint.from_jax_variables``), and call
-    it on HWC BGR uint8 frames."""
+    """User-facing detector, with the JAX facade's signature: build from
+    ``weights`` (a reference-layout ``.pt``/``.pth``, or a configuration name) or
+    from ``cfg`` with seeded weights, and call it on HWC BGR uint8 frames.
 
-    def __init__(self, cfg: Union[str, dict, ModelConfig] = "skyeye_s",
-                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+    ``weights`` that is not a ``.pt``/``.pth`` file resolves as a configuration
+    name, so ``SkyEyeDetector("skyeye_s")`` builds skyeye_s; with ``weights``
+    given and ``fuse`` (the default), every BatchNorm is folded into its conv,
+    as JAX's ``load_model(fuse=True)`` does. ``dtype`` is the compute dtype
+    (float32 or bfloat16); parameters stay float32. ``approx_topk=True`` (the
+    default) takes, for single-label requests, JAX's late-decode cut: per level
+    on the raw logits, decoding only the survivors. The card has no approximate
+    top-k, so that cut is exact (JAX's ``approx_topk=False`` late decode);
+    ``approx_topk=False`` decodes every anchor and takes one global exact cut.
+
+    The port's own: ``state_dict`` (e.g. from
+    ``utils.checkpoint.from_jax_variables``) is loaded, strictly, after the
+    model is built and before it is folded; ``device`` (CUDA unless the caller
+    asks for the CPU) and ``seed`` (of the weights a file does not give).
+    """
+
+    def __init__(self, weights: Optional[Union[str, Path]] = None,
+                 cfg: Union[str, dict, ModelConfig] = "skyeye_s",
                  num_classes: Optional[int] = None, img_size: int = 640,
                  conf_thres: float = 0.25, iou_thres: float = 0.45, max_det: int = 300,
-                 names: Optional[Sequence[str]] = None,
+                 dtype: torch.dtype = torch.float32, names: Optional[Sequence[str]] = None,
+                 fuse: bool = True, approx_topk: bool = True,
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0):
         self.device = resolve_device(device)
-        self.model = create_detector(cfg, num_classes=num_classes, device=self.device,
-                                     seed=seed)
+        if weights is not None:
+            self.model = load_model(weights, num_classes=num_classes, dtype=dtype,
+                                    device=self.device, seed=seed)
+        else:
+            self.model = create_detector(cfg, num_classes=num_classes, dtype=dtype,
+                                         device=self.device, seed=seed)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
+        if weights is not None and fuse:
+            self.model.load_state_dict(fuse_conv_bn(self.model.state_dict()), strict=True)
         self.config = self.model.config
         self.stride = int(max(self.config.strides))
         self.img_size = check_img_size(img_size, self.stride)
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
         self.max_det = max_det
+        self.approx_topk = approx_topk
         self.names = list(names) if names else [str(i) for i in range(self.config.nc)]
         # Called with each stage's name as the stage is issued (host_prep,
         # host_to_device, letterbox, model, decode, nms, device_to_host, rescale);
@@ -102,17 +133,34 @@ class SkyEyeDetector:
               agnostic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) uint8 RGB frames on the detector's device ->
         ((B, max_det, 6) detections in letterboxed pixels, (B,) counts)."""
-        x = letterbox_batch(frames, out_shape) / 255.0
+        x = (letterbox_batch(frames, out_shape) / 255.0).to(self.model.dtype)
         self._stage("letterbox")
         outs = self.model(x.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
         self._stage("model")
-        dec = decode_predictions(outs, self.config.anchors, out_shape, anchor_major=False)
-        self._stage("decode")
-        out = nms_batched(dec, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
-                          multi_label=multi_label, agnostic=agnostic, max_det=self.max_det,
-                          max_nms=serving_max_nms(self.conf_thres))
+        max_nms = serving_max_nms(self.conf_thres)
+        if self.approx_topk and not multi_label:
+            cut = topk_candidates(outs, self.config.anchors, out_shape,
+                                  conf_thres=self.conf_thres, max_nms=max_nms)
+            self._stage("decode")  # the cut on the logits and the survivors' decode
+            out = suppress_candidates_batched(*cut, iou_thres=self.iou_thres,
+                                              max_det=self.max_det, agnostic=agnostic)
+        else:
+            dec = decode_predictions(outs, self.config.anchors, out_shape, anchor_major=False)
+            self._stage("decode")
+            out = nms_batched(dec, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
+                              multi_label=multi_label, agnostic=agnostic,
+                              max_det=self.max_det, max_nms=max_nms)
         self._stage("nms")
         return out
+
+    def warmup(self, imgsz: Tuple[int, int, int, int] = (1, 3, 640, 640)) -> None:
+        """Build the kernels this detector's path launches and run one batch of
+        zero frames (B, 3, H, W) through it (the reference's ``model.warmup``)."""
+        b, _, h, w = imgsz
+        frames = torch.zeros((b, h, w, 3), dtype=torch.uint8, device=self.device)
+        self.infer(frames, (self.img_size, self.img_size))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @staticmethod
     def _batch_buckets(n: int, cap: int = 16) -> List[int]:

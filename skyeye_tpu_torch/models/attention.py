@@ -1,20 +1,26 @@
-"""CBAM attention (NCHW) and the transformer layer of the P5 head (tokens).
+"""CBAM attention and the enhanced variant's cross-layer attention (NCHW), and
+the transformer layer of the P5 head (tokens).
 
 Port of ``ChannelAttention``, ``SpatialAttention``, ``CBAM``,
-``MultiHeadSelfAttention`` and ``TransformerLayer`` in
-``skyeye_tpu/models/attention.py``. Multi-head attention over 256 tokens or
-more, with no mask or bias, runs through the fused kernel (K4,
-``ops/attention_kernel.py``), as the JAX module's flash gate does.
+``CrossLayerAttention`` (with ``_bilinear_resize``), ``MultiHeadSelfAttention``
+and ``TransformerLayer`` in ``skyeye_tpu/models/attention.py``. Multi-head
+attention over 256 tokens or more, with no mask or bias, runs through the fused
+kernel (K4, ``ops/attention_kernel.py``) in float32 whatever ``dtype`` is, as
+the JAX module's flash gate does. Every module computes in ``dtype`` with
+float32 parameters (flax's ``dtype``/``param_dtype``); LayerNorm normalises in
+float32 and the softmaxes run where flax runs them.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention_kernel import MAX_HEAD_DIM, flash_attention
+from .blocks import Conv2d, Linear
 
 FLASH_MIN_TOKENS = 256  # the JAX gate: below it the einsum path runs
 
@@ -28,11 +34,12 @@ def takes_flash_path(n: int, hd: int, mask, bias) -> bool:
 class ChannelAttention(nn.Module):
     """SE-style gate: (avg-pool + max-pool) -> shared MLP -> sigmoid."""
 
-    def __init__(self, channels: int, reduction_ratio: int = 16):
+    def __init__(self, channels: int, reduction_ratio: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         reduced = max(channels // reduction_ratio, 1)
-        self.fc1 = nn.Linear(channels, reduced, bias=False)
-        self.fc2 = nn.Linear(reduced, channels, bias=False)
+        self.fc1 = Linear(channels, reduced, bias=False, compute_dtype=dtype)
+        self.fc2 = Linear(reduced, channels, bias=False, compute_dtype=dtype)
 
     def _mlp(self, v: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.relu(self.fc1(v)))
@@ -47,9 +54,10 @@ class ChannelAttention(nn.Module):
 class SpatialAttention(nn.Module):
     """Channel-mean/max maps -> k x k conv -> sigmoid gate."""
 
-    def __init__(self, kernel_size: int = 7):
+    def __init__(self, kernel_size: int = 7, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
+        self.conv = Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False,
+                           compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         stats = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
@@ -59,24 +67,107 @@ class SpatialAttention(nn.Module):
 class CBAM(nn.Module):
     """Sequential channel then spatial attention."""
 
-    def __init__(self, channels: int, reduction_ratio: int = 16):
+    def __init__(self, channels: int, reduction_ratio: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.channel = ChannelAttention(channels, reduction_ratio)
-        self.spatial = SpatialAttention()
+        self.channel = ChannelAttention(channels, reduction_ratio, dtype=dtype)
+        self.spatial = SpatialAttention(dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.spatial(self.channel(x))
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """NCHW bilinear resize as ``jax.image.resize(..., "bilinear")``: half-pixel
+    centres, edges clamped, and the triangle kernel widened along an axis that
+    shrinks (JAX's antialiasing, which PyTorch computes only in float32 and up)."""
+    if out_h >= x.shape[2] and out_w >= x.shape[3]:
+        return F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False)
+    wide = x.to(torch.promote_types(x.dtype, torch.float32))
+    return F.interpolate(wide, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                         antialias=True).to(x.dtype)
+
+
+class CrossLayerAttention(nn.Module):
+    """Local-region multi-head cross-attention between pyramid levels (NCHW).
+
+    The query comes from the finer level; K and V from the coarser level,
+    projected, resized to the query grid and shifted (edges replicated) over a
+    ``region_size`` x ``region_size`` neighbourhood, offsets from
+    ``-(r - 1) // 2``. Each head's logits use the first min(hq, hk) channels of
+    its query and key heads, scaled by 1 / sqrt(query_channels); the softmax
+    runs over the r^2 positions. A channel index is head * head_width + c, as
+    flax's reshape of NHWC gives it.
+
+    ``ref_exact``: the reference's repaired semantics (``skyeye_tpu``'s
+    ``CrossLayerAttention.ref_exact``): q projected to ``key_channels``, one
+    resized K/V, the softmax over image rows, the output scaled by r^2.
+
+    The shifts are taken one at a time rather than stacked, so no (B, r^2, C, H,
+    W) tensor is made; the sums are JAX's in another order.
+    """
+
+    def __init__(self, query_channels: int, key_channels: int,
+                 value_channels: Optional[int] = None, region_size: int = 2,
+                 output_channels: Optional[int] = None, heads: int = 4,
+                 ref_exact: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.query_channels, self.key_channels = query_channels, key_channels
+        self.value_channels = value_channels or key_channels
+        self.region_size, self.heads, self.ref_exact, self.dtype = (
+            region_size, heads, ref_exact, dtype)
+        q_out = key_channels if ref_exact else query_channels
+        out_ch = output_channels or query_channels
+        self.q_proj = Conv2d(query_channels, q_out, 1, compute_dtype=dtype)
+        self.k_proj = Conv2d(key_channels, key_channels, 1, compute_dtype=dtype)
+        self.v_proj = Conv2d(key_channels, self.value_channels, 1, compute_dtype=dtype)
+        self.out_proj = Conv2d(self.value_channels, out_ch, 1, compute_dtype=dtype)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: Optional[torch.Tensor] = None) -> torch.Tensor:
+        value = key if value is None else value
+        n, r = self.heads, self.region_size
+        scale = 1.0 / float(np.sqrt(self.query_channels))
+        q = self.q_proj(query)
+        b, _, h, w = q.shape
+        k = bilinear_resize(self.k_proj(key), h, w)
+        v = bilinear_resize(self.v_proj(value), h, w)
+        heads = lambda t: t.reshape(b, n, t.shape[1] // n, h, w)  # noqa: E731
+        if self.ref_exact:
+            scores = (heads(q) * heads(k)).sum(dim=2) * scale          # (B, n, H, W)
+            attn = torch.softmax(scores.float(), dim=2)                # over image rows
+            out = (float(r * r) * attn[:, :, None]).to(self.dtype) * heads(v)
+            return self.out_proj(out.reshape(b, self.value_channels, h, w))
+
+        lo = -(r - 1) // 2
+        shifts = [(lo + i, lo + j) for i in range(r) for j in range(r)]
+        rows = [(torch.arange(h, device=q.device) - dy).clamp(0, h - 1) for dy, _ in shifts]
+        cols = [(torch.arange(w, device=q.device) - dx).clamp(0, w - 1) for _, dx in shifts]
+
+        def shifted(t, i):  # t[..., y - dy, x - dx], edges replicated
+            return t.index_select(-2, rows[i]).index_select(-1, cols[i])
+
+        qh = heads(q)
+        d = min(qh.shape[2], self.key_channels // n)
+        kh = heads(k)[:, :, :d]
+        logits = torch.stack([(qh[:, :, :d] * shifted(kh, i)).sum(dim=2)
+                              for i in range(len(shifts))], dim=1) * scale  # (B, r^2, n, H, W)
+        attn = torch.softmax(logits, dim=1)
+        vh = heads(v)
+        out = sum(attn[:, i, :, None] * shifted(vh, i) for i in range(len(shifts)))
+        return self.out_proj(out.reshape(b, self.value_channels, h, w))
 
 
 class MultiHeadSelfAttention(nn.Module):
     """MHSA over (B, N, C) tokens: one fused qkv GEMM whose output splits as
     (N, 3, heads, hd), the attention core, and an output projection."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.dtype = dtype
+        self.qkv = Linear(dim, 3 * dim, compute_dtype=dtype)
+        self.proj = Linear(dim, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -89,7 +180,7 @@ class MultiHeadSelfAttention(nn.Module):
 
             out = flash_attention(heads_first(q), heads_first(k), heads_first(v))
             out = out.reshape(b, self.num_heads, n, hd).transpose(1, 2).reshape(b, n, c)
-            out = out.to(x.dtype)
+            out = out.to(self.dtype)
         else:
             logits = torch.einsum("bqhc,bkhc->bhqk", q, k) * hd ** -0.5
             if bias is not None:
@@ -101,17 +192,30 @@ class MultiHeadSelfAttention(nn.Module):
         return self.proj(out)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` as flax's: statistics and normalisation in float32 (or
+    wider), the result in ``compute_dtype``."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wide = x.to(torch.promote_types(x.dtype, torch.float32))
+        return super().forward(wide).to(self.compute_dtype)
+
+
 class TransformerLayer(nn.Module):
     """Pre-norm MHSA + ReLU FFN (width 4 C) over (B, N, C) tokens; LayerNorm eps
     1e-6 and dropout 0.1 as in flax (dropout is the identity in eval)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = MultiHeadSelfAttention(dim, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.ff1 = nn.Linear(dim, 4 * dim)
-        self.ff2 = nn.Linear(4 * dim, dim)
+        self.norm1 = LayerNorm(dim, eps=1e-6, compute_dtype=dtype)
+        self.attn = MultiHeadSelfAttention(dim, num_heads, dtype=dtype)
+        self.norm2 = LayerNorm(dim, eps=1e-6, compute_dtype=dtype)
+        self.ff1 = Linear(dim, 4 * dim, compute_dtype=dtype)
+        self.ff2 = Linear(4 * dim, dim, compute_dtype=dtype)
         self.dropout = nn.Dropout(0.1)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Port of ``skyeye_tpu/models/backbone.py``: Focus + conv/2 + CSP(3d) -> conv/2 +
 CSP(9d) [P3/8] -> conv/2 + CSP(9d) + CBAM [P4/16] -> conv/2 + CSP(3d) + SPP
-[P5/32], with depth/width multipliers. ``fused_csp`` swaps stage-1's CSP for
-``FusedCSPBlock`` (the fused kernel, serving only), as the JAX flag does.
+[P5/32], with depth/width multipliers, computing in ``dtype``. ``fused_csp``
+swaps stage-1's CSP for ``FusedCSPBlock`` (the fused kernel, serving only), as
+the JAX flag does.
 """
 from __future__ import annotations
 
@@ -38,22 +39,23 @@ class CSPDarknet(nn.Module):
     """Four-stage CSP-Darknet emitting [P3 (/8), P4 (/16), P5 (/32)]."""
 
     def __init__(self, base_channels: int = 64, depth_multiple: float = 1.0,
-                 width_multiple: float = 1.0, in_channels: int = 3, fused_csp: bool = False):
+                 width_multiple: float = 1.0, in_channels: int = 3, fused_csp: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         w, d = width_multiple, depth_multiple
         c1, c2, c3, c4, c5 = (scaled_channels(base_channels * m, w) for m in (1, 2, 4, 8, 16))
-        self.stem = FocusBlock(in_channels, c1, kernel_size=3)
-        self.down1 = ConvBlock(c1, c2, 3, stride=2)
+        self.stem = FocusBlock(in_channels, c1, kernel_size=3, dtype=dtype)
+        self.down1 = ConvBlock(c1, c2, 3, stride=2, dtype=dtype)
         csp1 = FusedCSPBlock if fused_csp else CSPBlock
-        self.csp1 = csp1(c2, c2, scaled_depth(3, d))
-        self.down2 = ConvBlock(c2, c3, 3, stride=2)
-        self.csp2 = CSPBlock(c3, c3, scaled_depth(9, d))
-        self.down3 = ConvBlock(c3, c4, 3, stride=2)
-        self.csp3 = CSPBlock(c4, c4, scaled_depth(9, d))
-        self.cbam3 = CBAM(c4)
-        self.down4 = ConvBlock(c4, c5, 3, stride=2)
-        self.csp4 = CSPBlock(c5, c5, scaled_depth(3, d))
-        self.spp4 = SPPBlock(c5, c5)
+        self.csp1 = csp1(c2, c2, scaled_depth(3, d), dtype=dtype)
+        self.down2 = ConvBlock(c2, c3, 3, stride=2, dtype=dtype)
+        self.csp2 = CSPBlock(c3, c3, scaled_depth(9, d), dtype=dtype)
+        self.down3 = ConvBlock(c3, c4, 3, stride=2, dtype=dtype)
+        self.csp3 = CSPBlock(c4, c4, scaled_depth(9, d), dtype=dtype)
+        self.cbam3 = CBAM(c4, dtype=dtype)
+        self.down4 = ConvBlock(c4, c5, 3, stride=2, dtype=dtype)
+        self.csp4 = CSPBlock(c5, c5, scaled_depth(3, d), dtype=dtype)
+        self.spp4 = SPPBlock(c5, c5, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.csp1(self.down1(self.stem(x)))

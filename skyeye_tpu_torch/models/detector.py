@@ -1,11 +1,15 @@
-"""SkyEye detector assembly: backbone + neck + head (+ the transformer P5 head).
+"""SkyEye detector assembly: backbone + neck (+ the enhanced variant's
+cross-layer attention) + head (+ the transformer P5 head).
 
 Port of ``SkyEyeDetectorModule`` and ``create_detector`` in
 ``skyeye_tpu/models/detector.py``. The module takes NCHW images and returns the
-raw per-level logits in the JAX layout; decode is a separate function. The
-transformer variant runs its P5 attention through the fused kernel (K4);
-``fused_csp=True`` is the fused-CSP serving mode (K3), built from folded weights
-by ``fused_csp_detector``. The enhanced variant comes with a later slice.
+raw per-level logits in the JAX layout; decode is a separate function. It
+computes in ``dtype`` (float32 or bfloat16) with float32 parameters, so its
+``state_dict`` is the same in either. The transformer variant runs its P5
+attention through the fused kernel (K4); the enhanced variant adds
+``CrossLayerAttention`` P5 -> P4, then P4 -> P3, each to its level;
+``fused_csp=True`` is the fused-CSP serving mode (K3), built from folded
+weights by ``fused_csp_detector``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from ..config import ModelConfig, load_model_config
 from ..ops.fused_csp import fuse_csp_state
 from ..utils.checkpoint import fuse_conv_bn
 from ..utils.general import resolve_device
+from .attention import CrossLayerAttention
 from .backbone import CSPDarknet, feature_channels
 from .head import DetectionHead, decode_predictions
 from .neck import FeatureNeck
@@ -28,21 +33,32 @@ from .neck import FeatureNeck
 class SkyEyeDetectorModule(nn.Module):
     """Full detector: returns raw per-level logits (B, H, W, na, nc + 5)."""
 
-    def __init__(self, config: ModelConfig, fused_csp: bool = False):
+    def __init__(self, config: ModelConfig, fused_csp: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.enhanced:
-            raise NotImplementedError(
-                "the enhanced variant is not ported yet (ROADMAP.md Queue 1, Slice D)")
         self.config = config
+        self.dtype = dtype
         channels = feature_channels(config.base_channels, config.width_multiple)
         self.backbone = CSPDarknet(config.base_channels, config.depth_multiple,
-                                   config.width_multiple, config.in_channels, fused_csp)
-        self.neck = FeatureNeck(channels)
+                                   config.width_multiple, config.in_channels, fused_csp,
+                                   dtype=dtype)
+        self.neck = FeatureNeck(channels, dtype=dtype)
+        if config.enhanced:  # named as in flax, beside backbone, neck and head
+            c3, c4, c5 = channels
+            ref_exact = config.ref_exact_cross_attn
+            self.cross_attn_p5_p4 = CrossLayerAttention(c4, c5, region_size=2, heads=4,
+                                                        ref_exact=ref_exact, dtype=dtype)
+            self.cross_attn_p4_p3 = CrossLayerAttention(c3, c4, region_size=2, heads=4,
+                                                        ref_exact=ref_exact, dtype=dtype)
         self.head = DetectionHead(channels, config.nc, config.num_anchors,
-                                  config.transformer_heads)
+                                  config.transformer_heads, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return self.head(self.neck(self.backbone(x)))
+        p3, p4, p5 = self.neck(self.backbone(x))
+        if self.config.enhanced:
+            p4 = self.cross_attn_p5_p4(p4, p5) + p4
+            p3 = self.cross_attn_p4_p3(p3, p4) + p3
+        return self.head([p3, p4, p5])
 
     def decode(self, outputs, input_shape) -> torch.Tensor:
         return decode_predictions(outputs, self.config.anchors, input_shape)
@@ -72,11 +88,14 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 def create_detector(cfg: Union[str, dict, ModelConfig] = "skyeye_s",
                     num_classes: Optional[int] = None, anchors=None,
+                    dtype: torch.dtype = torch.float32,
                     device: Union[str, torch.device] = "cuda",
                     seed: int = 0) -> SkyEyeDetectorModule:
-    """Build the detector with weights made from ``seed``, in eval mode on ``device``.
+    """Build the detector with weights made from ``seed``, in eval mode on ``device``,
+    computing in ``dtype`` (parameters float32).
 
-    ``num_classes`` / ``anchors`` override the config's values."""
+    ``num_classes`` / ``anchors`` override the config's values; the config's
+    ``ref_exact_cross_attn`` picks the enhanced variant's attention mode."""
     dev = resolve_device(device)
     config = load_model_config(cfg)
     if num_classes is not None and num_classes != config.nc:
@@ -84,7 +103,7 @@ def create_detector(cfg: Union[str, dict, ModelConfig] = "skyeye_s",
     if anchors is not None:
         config = dataclasses.replace(config, anchors=tuple(
             tuple(tuple(float(v) for v in a) for a in level) for level in anchors))
-    module = SkyEyeDetectorModule(config)
+    module = SkyEyeDetectorModule(config, dtype=dtype)
     init_weights(module, torch.Generator().manual_seed(seed))
     return module.eval().to(dev)
 
@@ -93,12 +112,12 @@ def create_detector(cfg: Union[str, dict, ModelConfig] = "skyeye_s",
 def fused_csp_detector(module: SkyEyeDetectorModule) -> SkyEyeDetectorModule:
     """The fused-CSP serving form of a canonical detector: every conv + BN folded
     (``fuse_conv_bn``), stage-1's CSP rewritten for ``FusedCSPBlock``
-    (``fuse_csp_state``), in eval mode on the module's device, with the kernel's
-    packed weights prepared. The port of what ``bench.py`` does with
-    ``SKYEYE_FUSED_CSP=1``."""
+    (``fuse_csp_state``), in the module's ``dtype``, in eval mode on its device,
+    with the kernel's packed weights prepared. The port of what ``bench.py``
+    does with ``SKYEYE_FUSED_CSP=1`` (there in bfloat16 throughout)."""
     device = next(module.parameters()).device
     state = fuse_csp_state(fuse_conv_bn(module.state_dict()), prefix="backbone.csp1")
-    fused = SkyEyeDetectorModule(module.config, fused_csp=True)
+    fused = SkyEyeDetectorModule(module.config, fused_csp=True, dtype=module.dtype)
     fused.load_state_dict(state, strict=True)
     fused = fused.eval().to(device)
     fused.backbone.csp1.prepare()

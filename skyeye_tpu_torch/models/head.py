@@ -1,8 +1,8 @@
 """Anchor-based detection head and the anchor decode.
 
 Port of ``skyeye_tpu/models/head.py``. The head takes NCHW features and
-returns the JAX layout, (B, H, W, na, nc + 5) raw logits per level; decode
-gives (B, N, nc + 5) with xywh in input pixels and sigmoided obj/cls. With
+returns the JAX layout, (B, H, W, na, nc + 5) raw logits per level, in the
+head's ``dtype``; decode runs in float32, as in JAX, and gives (B, N, nc + 5) with xywh in input pixels and sigmoided obj/cls. With
 ``transformer_heads`` a ``TransformerLayer`` (named ``transformer{i}``) refines
 the last level's H*W tokens, in row-major (h, w) order, before its conv.
 """
@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from .attention import TransformerLayer
+from .blocks import Conv2d
 
 TRANSFORMER_HEADS = 4  # attention heads of the P5 transformer, as in flax
 
@@ -22,7 +23,7 @@ class DetectionHead(nn.Module):
     """Per-level 1x1 prediction convs -> (B, H, W, na, nc + 5) raw logits."""
 
     def __init__(self, in_channels: Sequence[int], num_classes: int, num_anchors: int = 3,
-                 transformer_heads: bool = False):
+                 transformer_heads: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.no = num_classes + 5
         self.num_anchors = num_anchors
@@ -30,8 +31,9 @@ class DetectionHead(nn.Module):
         self.transformer_level = self.num_levels - 1 if transformer_heads else -1
         for i, c in enumerate(in_channels):  # pred0, pred1, transformer2, pred2 as in flax
             if i == self.transformer_level:
-                self.add_module(f"transformer{i}", TransformerLayer(c, TRANSFORMER_HEADS))
-            self.add_module(f"pred{i}", nn.Conv2d(c, num_anchors * self.no, 1))
+                self.add_module(f"transformer{i}",
+                                TransformerLayer(c, TRANSFORMER_HEADS, dtype=dtype))
+            self.add_module(f"pred{i}", Conv2d(c, num_anchors * self.no, 1, compute_dtype=dtype))
 
     def forward(self, features: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         outputs = []

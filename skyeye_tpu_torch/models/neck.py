@@ -25,18 +25,18 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 class FeatureNeck(nn.Module):
     """FPN top-down + PAN bottom-up fusion over [P3, P4, P5]."""
 
-    def __init__(self, in_channels: Sequence[int]):
+    def __init__(self, in_channels: Sequence[int], dtype: torch.dtype = torch.float32):
         super().__init__()
         c3, c4, c5 = in_channels
         self.in_channels = tuple(in_channels)
-        self.lateral5 = ConvBlock(c5, c4, 1)
-        self.lateral4 = ConvBlock(c4, c3, 1)
-        self.fpn4 = CSPBlock(2 * c4, c4, NECK_BLOCKS)
-        self.fpn3 = CSPBlock(2 * c3, c3, NECK_BLOCKS)
-        self.down3 = ConvBlock(c3, c3, 3, stride=2)
-        self.pan4 = CSPBlock(c3 + c4, c4, NECK_BLOCKS)
-        self.down4 = ConvBlock(c4, c4, 3, stride=2)
-        self.pan5 = CSPBlock(c4 + c5, c5, NECK_BLOCKS)
+        self.lateral5 = ConvBlock(c5, c4, 1, dtype=dtype)
+        self.lateral4 = ConvBlock(c4, c3, 1, dtype=dtype)
+        self.fpn4 = CSPBlock(2 * c4, c4, NECK_BLOCKS, dtype=dtype)
+        self.fpn3 = CSPBlock(2 * c3, c3, NECK_BLOCKS, dtype=dtype)
+        self.down3 = ConvBlock(c3, c3, 3, stride=2, dtype=dtype)
+        self.pan4 = CSPBlock(c3 + c4, c4, NECK_BLOCKS, dtype=dtype)
+        self.down4 = ConvBlock(c4, c4, 3, stride=2, dtype=dtype)
+        self.pan5 = CSPBlock(c4 + c5, c5, NECK_BLOCKS, dtype=dtype)
 
     @property
     def out_channels(self) -> List[int]:

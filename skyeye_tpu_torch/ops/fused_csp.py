@@ -20,8 +20,11 @@ class FusedCSPBlock(nn.Module):
 
     The parameters are flat and in the JAX layout (``w_cv1`` (C, h), ...,
     ``w_m2`` (nb, 3, 3, h, h)); they come from ``fuse_csp_state`` and are never
-    trained. Takes NCHW float32, runs the kernel on a channels-last bf16 copy and
-    returns float32 (NCHW view of channels-last memory).
+    trained. Takes NCHW, runs the kernel on the activations in bf16 and
+    channels-last and returns ``dtype`` (an NCHW view of channels-last memory),
+    as JAX's block does. In a bf16 detector whose activations are channels-last
+    already, that is no copy on either side; in a float32 one, a bf16 copy in and
+    a float32 copy out.
 
     ``prepare()`` packs the kernel's weights from the parameters once
     (``fused_csp_detector`` calls it after loading and placing them), so a served
@@ -29,10 +32,12 @@ class FusedCSPBlock(nn.Module):
     parameters.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, num_blocks: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, num_blocks: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c, h, nb = in_channels, out_channels // 2, num_blocks  # hidden: expansion 0.5
         self.num_blocks = nb
+        self.dtype = dtype
         shapes = {"w_cv1": (c, h), "b_cv1": (h,), "w_m1": (nb, h, h), "b_m1": (nb, h),
                   "w_m2": (nb, 3, 3, h, h), "b_m2": (nb, h), "w_cv2": (c, h), "b_cv2": (h,),
                   "w_cv3": (2 * h, out_channels), "b_cv3": (out_channels,)}
@@ -55,7 +60,7 @@ class FusedCSPBlock(nn.Module):
                                f"{x.device}; call prepare() after loading or moving them")
         xh = x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
         out = csp_fused_v2(xh, self.prepared, self.num_blocks, TILE_ROWS)
-        return out.permute(0, 3, 1, 2).to(x.dtype)
+        return out.permute(0, 3, 1, 2).to(self.dtype)
 
 
 def _require_identity_bn(state: Mapping[str, torch.Tensor], bn: str) -> None:

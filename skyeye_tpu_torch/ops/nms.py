@@ -80,7 +80,7 @@ def suppress_candidates(cand_boxes: torch.Tensor, cand_scores: torch.Tensor,
     return det, keep_valid.sum().int()
 
 
-def _topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k along the last axis; equal values keep the lower index first."""
     values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], idx[..., :k]
@@ -107,7 +107,7 @@ def _candidate_cut(prediction: torch.Tensor, conf_thres: float, multi_label: boo
             scores_full = torch.where(class_mask, scores_full, neg)
         flat = scores_full.flatten(-2)
         k = min(max_nms, flat.shape[-1])
-        top_scores, top_flat_idx = _topk_stable(flat, k)
+        top_scores, top_flat_idx = topk_stable(flat, k)
         box_idx = top_flat_idx // nc
         cand_cls = (top_flat_idx % nc).float()
         cand_boxes = torch.gather(boxes, -2, box_idx[..., None].expand(*box_idx.shape, 4))
@@ -119,7 +119,7 @@ def _candidate_cut(prediction: torch.Tensor, conf_thres: float, multi_label: boo
         if class_mask is not None:
             score = torch.where(class_mask[best_cls], score, neg)
         k = min(max_nms, score.shape[-1])
-        cand_scores, top_idx = _topk_stable(score, k)
+        cand_scores, top_idx = topk_stable(score, k)
         cand_boxes = torch.gather(boxes, -2, top_idx[..., None].expand(*top_idx.shape, 4))
         cand_cls = torch.gather(best_cls, -1, top_idx).float()
     return cand_boxes, cand_scores, cand_cls

@@ -1,4 +1,4 @@
-"""Weight bridge: flax variables (as numpy) -> the port's ``state_dict``.
+"""Weights: the flax-variable bridge, reference-layout ``.pt`` files, BN folding.
 
 The port's module names follow the flax module names, so each flax path maps
 to one ``state_dict`` key: conv kernels go from HWIO to OIHW, dense kernels
@@ -8,17 +8,29 @@ to ``weight``/``bias``/``running_mean``/``running_var``, LayerNorm
 ..., ``b_cv3``) keep their JAX layout. The caller flattens the flax variables
 to numpy arrays; nothing here imports flax.
 
+``load_torch_checkpoint`` reads a reference-layout ``.pt`` (what
+``skyeye_tpu/cli/export.py::export_torch`` writes, in any of the reference's
+three wrapper conventions) by the name rules of ``skyeye_tpu/utils/checkpoint.py``
+into flax paths, then through ``from_jax_variables``; ``merge_matching`` loads
+it by shape, leaving the rest of a module's weights as they are, and
+``load_model`` is the facade's loader (the port of JAX's ``load_model``).
+
 ``fuse_conv_bn`` folds BatchNorm into the preceding conv, on the port's own
 ``state_dict``.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import dataclasses
+import re
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..config import ModelConfig, load_model_config
 from ..ops.csp_kernel import WEIGHT_NAMES as _FLAT_LEAVES
+from .general import LOGGER
 
 _COLLECTIONS = ("params", "batch_stats")
 _LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
@@ -77,3 +89,211 @@ def fuse_conv_bn(state: Mapping[str, torch.Tensor], eps: float = 1e-5) -> Dict[s
         out[key] = torch.zeros_like(g)
         out[f"{m}.bn.running_var"] = torch.ones_like(g) - eps
     return out
+
+
+# -- reference-layout torch .pt files --------------------------------------------
+
+# Reference module path -> flax path (skyeye_tpu/utils/checkpoint.py's rules).
+_PREFIX_RULES = [
+    # the Focus stem: its k x k kernel over the space-to-depth image becomes the
+    # fused 2k x 2k kernel (fused_stem_kernel, after the rules)
+    (r"^backbone\.backbone\.stage1\.0\.conv\.", "backbone/stem/"),
+    (r"^backbone\.backbone\.stage1\.1\.", "backbone/down1/"),
+    (r"^backbone\.backbone\.stage1\.2\.", "backbone/csp1/"),
+    (r"^backbone\.backbone\.stage2\.0\.", "backbone/down2/"),
+    (r"^backbone\.backbone\.stage2\.1\.", "backbone/csp2/"),
+    (r"^backbone\.backbone\.stage3\.0\.", "backbone/down3/"),
+    (r"^backbone\.backbone\.stage3\.1\.", "backbone/csp3/"),
+    (r"^backbone\.backbone\.stage3\.2\.channel_attention\.shared_mlp\.0\.",
+     "backbone/cbam3/channel/fc1/"),
+    (r"^backbone\.backbone\.stage3\.2\.channel_attention\.shared_mlp\.2\.",
+     "backbone/cbam3/channel/fc2/"),
+    (r"^backbone\.backbone\.stage3\.2\.spatial_attention\.conv\.",
+     "backbone/cbam3/spatial/conv/"),
+    (r"^backbone\.backbone\.stage4\.0\.", "backbone/down4/"),
+    (r"^backbone\.backbone\.stage4\.1\.", "backbone/csp4/"),
+    (r"^backbone\.backbone\.stage4\.2\.", "backbone/spp4/"),
+    (r"^neck\.lateral_conv5\.", "neck/lateral5/"),
+    (r"^neck\.lateral_conv4\.", "neck/lateral4/"),
+    (r"^neck\.fpn_conv4\.", "neck/fpn4/"),
+    (r"^neck\.fpn_conv3\.", "neck/fpn3/"),
+    (r"^neck\.downsample3\.", "neck/down3/"),
+    (r"^neck\.downsample4\.", "neck/down4/"),
+    (r"^neck\.pan_conv4\.", "neck/pan4/"),
+    (r"^neck\.pan_conv5\.", "neck/pan5/"),
+    (r"^detection_head\.detection_layers\.(\d+)\.", r"head/pred\1/"),
+] + [(rf"^cross_attention_{lv}\.{ref}_projection\.", f"cross_attn_{lv}/{short}_proj/")
+     for lv in ("p5_p4", "p4_p3")
+     for ref, short in (("query", "q"), ("key", "k"), ("value", "v"), ("output", "out"))]
+
+# Rules inside a block, after the prefix: bottlenecks and conv-block internals.
+_INNER_RULES = [
+    (r"bottlenecks\.(\d+)\.", r"m\1/"),
+    (r"cv1\.", "cv1/"),
+    (r"cv2\.", "cv2/"),
+    (r"cv3\.", "cv3/"),
+    (r"conv\.conv\.", "conv/conv/"),
+]
+
+_BN_LEAVES = {"weight": ("scale", "params"), "bias": ("bias", "params"),
+              "running_mean": ("mean", "batch_stats"), "running_var": ("var", "batch_stats")}
+
+
+def _translate_key(torch_key: str) -> Optional[Tuple[str, str]]:
+    """A reference ``state_dict`` key -> (flax collection, ``/``-joined flax path),
+    or None for a key with no flax counterpart."""
+    key = torch_key
+    for pat, repl in _PREFIX_RULES:
+        if re.match(pat, key):
+            key = re.sub(pat, repl, key)
+            break
+    else:
+        return None
+    for pat, repl in _INNER_RULES:
+        key = re.sub(pat, repl, key)
+
+    m = re.search(r"(?:^|/)(conv|bn)\.(weight|bias|running_mean|running_var|"
+                  r"num_batches_tracked)$", key)
+    if m:
+        mod, leaf = m.group(1), m.group(2)
+        base = key[: m.start()].strip("/")
+        if mod == "conv":
+            name = {"weight": "kernel", "bias": "bias"}.get(leaf)
+            return None if name is None else ("params", f"{base}/conv/{name}")
+        if leaf == "num_batches_tracked":
+            return None
+        name, collection = _BN_LEAVES[leaf]
+        return collection, f"{base}/bn/{name}"
+    # conv and linear modules addressed directly (head preds, attention
+    # projections, the CBAM MLP)
+    m = re.search(r"[./](weight|bias)$", key)
+    if m:
+        base = key[: m.start()].strip("/").replace(".", "/")
+        return "params", f"{base}/{'bias' if m.group(1) == 'bias' else 'kernel'}"
+    return None
+
+
+# patch order TL, BL, TR, BR of the space-to-depth stem: p -> (dy, dx)
+_S2D_OFFSETS = ((0, 0), (1, 0), (0, 1), (1, 1))
+
+
+def fused_stem_kernel(k_s2d: np.ndarray) -> np.ndarray:
+    """A (k, k, 4C, O) HWIO kernel over the space-to-depth image -> the equal
+    (2k, 2k, C, O) stride-2 kernel over the raw image (skyeye_tpu's
+    ``models.blocks.fused_stem_kernel``)."""
+    k, _, c4, o = k_s2d.shape
+    c = c4 // 4
+    out = np.zeros((2 * k, 2 * k, c, o), k_s2d.dtype)
+    for p, (dy, dx) in enumerate(_S2D_OFFSETS):
+        out[dy::2, dx::2] = k_s2d[:, :, p * c: (p + 1) * c]
+    return out
+
+
+def convert_torch_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference-layout ``state_dict`` -> the port's ``state_dict`` entries it
+    names. Keys with no counterpart are logged and dropped."""
+    flat: Dict[str, np.ndarray] = {}
+    unmatched = []
+    for key, value in state_dict.items():
+        arr = (value.detach().cpu().float().numpy() if isinstance(value, torch.Tensor)
+               else np.asarray(value, np.float32))
+        tr = _translate_key(key)
+        if tr is None:
+            unmatched.append(key)
+            continue
+        collection, path = tr
+        if path.endswith("kernel"):  # OIHW -> HWIO, (O, I) -> (I, O): the flax layout
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        flat[f"{collection}/{path}"] = arr
+    if unmatched:
+        LOGGER.info("torch conversion: %d keys unmatched (e.g. %s)", len(unmatched),
+                    unmatched[:3])
+    stem = "params/backbone/stem/conv/kernel"
+    if stem in flat and flat[stem].shape[2] % 4 == 0:
+        flat[stem] = fused_stem_kernel(flat[stem])
+    return from_jax_variables(flat)
+
+
+def load_torch_checkpoint(path) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """Read a reference-layout ``.pt``: ``{"model": module, ...}``, ``{"state_dict":
+    ..., ...}`` or a bare ``state_dict`` (or a bare module). Returns the port's
+    ``state_dict`` entries and the file's other fields (``config`` among them,
+    where ``export_torch`` wrote it). A ``.pt`` is a pickle: load only files you
+    trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    meta: Dict[str, Any] = {}
+    if isinstance(ckpt, dict) and "model" in ckpt and hasattr(ckpt["model"], "state_dict"):
+        sd = ckpt["model"].float().state_dict()
+        meta = {k: v for k, v in ckpt.items() if k != "model"}
+    elif isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = ckpt["state_dict"]
+        meta = {k: v for k, v in ckpt.items() if k != "state_dict"}
+    elif isinstance(ckpt, dict):
+        sd = ckpt
+    else:
+        sd = ckpt.state_dict()
+    return convert_torch_state_dict(sd), meta
+
+
+def merge_matching(target: Mapping[str, torch.Tensor], source: Mapping[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, torch.Tensor], int, int]:
+    """Shape-filtered partial load: each ``target`` entry is replaced by the
+    ``source`` entry of the same key and shape. Returns (merged, n_loaded,
+    n_total); BN batch counters are not counted."""
+    merged, n_loaded, n_total = {}, 0, 0
+    for key, value in target.items():
+        counted = not key.endswith("num_batches_tracked")
+        n_total += counted
+        src = source.get(key)
+        if src is not None and tuple(src.shape) == tuple(value.shape):
+            merged[key] = src.to(value.dtype)
+            n_loaded += counted
+        else:
+            merged[key] = value
+    return merged, n_loaded, n_total
+
+
+def _guess_variant(stem: str) -> str:
+    for v in ("s", "m", "l"):
+        if stem.endswith(f"_{v}"):
+            return v
+    return "s"
+
+
+def load_model(weights, num_classes: Optional[int] = None, dtype: torch.dtype = torch.float32,
+               device="cuda", seed: int = 0):
+    """The detector ``weights`` names, in eval mode on ``device``: a reference-layout
+    ``.pt``/``.pth`` file (its config from the file, else guessed from the file
+    name; its weights loaded by shape over a seeded init, the rest logged), or
+    a configuration name or path (weights from ``seed``). The port of
+    ``skyeye_tpu.utils.checkpoint.load_model``; the facade folds BatchNorm after
+    it. An orbax directory needs orbax, which the port does not use: it raises."""
+    from ..models.detector import create_detector
+
+    path = Path(str(weights))
+    if path.suffix in (".pt", ".pth"):
+        if not path.is_file():
+            raise FileNotFoundError(f"no weights file at {path}")
+        state, meta = load_torch_checkpoint(path)
+        meta_cfg = meta.get("config")
+        config = (ModelConfig.from_dict(meta_cfg) if meta_cfg else
+                  ModelConfig.from_variant(_guess_variant(path.stem), nc=num_classes or 80))
+        if num_classes:
+            config = dataclasses.replace(config, nc=num_classes)
+        module = create_detector(config, dtype=dtype, device=device, seed=seed)
+        merged, n_loaded, n_total = merge_matching(module.state_dict(), state)
+        module.load_state_dict(merged, strict=True)
+        left = sorted({k.rsplit(".", 1)[0] for k, v in module.state_dict().items()
+                       if k not in state or tuple(state[k].shape) != tuple(v.shape)})
+        LOGGER.info("loaded %d/%d tensors from %s", n_loaded, n_total, path)
+        if left:
+            LOGGER.info("left at their seeded init (not in the file, or another shape): %s",
+                        ", ".join(left))
+    elif path.is_dir():
+        raise ValueError(f"{path} is a directory (an orbax checkpoint?): reading one needs "
+                         "orbax, which the port does not use; export it to a .pt with "
+                         "skyeye_tpu.cli.export --formats torch")
+    else:
+        module = create_detector(load_model_config(weights), num_classes=num_classes,
+                                 dtype=dtype, device=device, seed=seed)
+    return module

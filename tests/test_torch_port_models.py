@@ -196,6 +196,8 @@ def test_decode_matches_jax_on_identical_logits():
 
 
 def test_unported_variants_raise():
-    # the transformer variant is ported (tests/test_torch_port_attention.py)
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        tdet.create_detector("skyeye_l_enhanced", device="cpu")
+    # every shipped configuration is ported: the transformer variant
+    # (tests/test_torch_port_attention.py) and the enhanced one
+    # (tests/test_torch_port_enhanced.py); a name that is none of them raises
+    with pytest.raises(FileNotFoundError, match="no model config"):
+        tdet.create_detector("skyeye_xl_enhanced", device="cpu")

@@ -1,11 +1,13 @@
 """The port's serving slice end to end against the JAX package's.
 
-``skyeye_tpu_torch.SkyEyeDetector(device="cpu")`` and
-``skyeye_tpu.SkyEyeDetector(approx_topk=False)`` run on the same weights and
-the same BGR uint8 frames, of two shapes. Counts and classes must be equal, in
-keep order; boxes (pixels of the original frame) within 1e-2 px and scores
-within 1e-4, the float32 error of a small network's forward carried through
-decode and rescaling.
+``skyeye_tpu_torch.SkyEyeDetector(device="cpu")`` and ``skyeye_tpu.SkyEyeDetector``
+run on the same weights and the same BGR uint8 frames, of two shapes, with the
+same ``approx_topk``: False (decode everything, one global exact cut) and the
+default True (late decode; JAX's approximate top-k is exact on the CPU, as the
+port's is everywhere). Counts and classes must be equal, in keep order; boxes
+(pixels of the original frame) within 1e-2 px and scores within 1e-4, the
+float32 error of a small network's forward carried through decode and
+rescaling.
 """
 import subprocess
 import sys
@@ -67,8 +69,8 @@ def detectors():
         ref = JaxDetector(cfg=CFG, img_size=128, approx_topk=False)
     finally:
         mp.undo()
-    port = SkyEyeDetector(CFG, state_dict=from_jax_variables(flat), img_size=128,
-                          device="cpu")
+    port = SkyEyeDetector(cfg=CFG, state_dict=from_jax_variables(flat), img_size=128,
+                          approx_topk=False, device="cpu")
     return ref, port
 
 
@@ -81,11 +83,11 @@ def _frames():
             for f in wide + tall]
 
 
-@pytest.mark.parametrize("conf", [0.005, 0.001])
-def test_serving_matches_jax(detectors, conf):
+def _serve_both(detectors, conf, approx_topk):
     ref, port = detectors
     ref.conf_thres = port.conf_thres = conf
-    ref._executables.clear()  # the JAX pipeline bakes conf_thres into its executable
+    ref.approx_topk = port.approx_topk = approx_topk
+    ref._executables.clear()  # the JAX pipeline bakes both into its executable
     frames = _frames()
     want = ref(frames)
     got = port(frames)
@@ -101,22 +103,34 @@ def test_serving_matches_jax(detectors, conf):
     got.print()
 
 
+@pytest.mark.parametrize("conf", [0.005, 0.001])
+def test_serving_matches_jax(detectors, conf):
+    _serve_both(detectors, conf, approx_topk=False)
+
+
+@pytest.mark.parametrize("conf", [0.01, 0.005, 0.001])
+def test_late_decode_serving_matches_jax(detectors, conf):
+    """The default on both facades: the cut per level on the raw logits."""
+    _serve_both(detectors, conf, approx_topk=True)
+
+
 def test_stage_hook_sees_each_stage_of_every_batch_in_order(detectors):
     _, port = detectors
-    port.conf_thres = 0.001
-    frames = _frames()
-    want = port(frames)
-    seen = []
-    port.on_stage = seen.append
-    try:
-        got = port(frames)
-    finally:
-        port.on_stage = None
     stages = ["host_prep", "host_to_device", "letterbox", "model", "decode", "nms",
               "device_to_host", "rescale"]
-    assert seen == stages * 2  # one batch per frame shape
-    for g, w in zip(got.xyxy, want.xyxy):
-        np.testing.assert_array_equal(g, w)
+    for approx_topk in (False, True):  # the global cut, then late decode: same stages
+        port.conf_thres, port.approx_topk = 0.001, approx_topk
+        frames = _frames()
+        want = port(frames)
+        seen = []
+        port.on_stage = seen.append
+        try:
+            got = port(frames)
+        finally:
+            port.on_stage = None
+        assert seen == stages * 2  # one batch per frame shape
+        for g, w in zip(got.xyxy, want.xyxy):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_batch_buckets_match_jax():
@@ -141,6 +155,8 @@ def test_main_path_imports_no_jax():
         "import skyeye_tpu_torch.ops.attention_kernel, skyeye_tpu_torch.ops.csp_kernel\n"
         "import skyeye_tpu_torch.ops.fused_csp, skyeye_tpu_torch.models.attention\n"
         "import skyeye_tpu_torch.tools.attention_precision\n"
+        "import skyeye_tpu_torch.ops.late_decode, skyeye_tpu_torch.ops.tiling\n"
+        "import skyeye_tpu_torch.utils.checkpoint\n"
         "import chip_smoke\n"
         "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
