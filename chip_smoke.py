@@ -7,7 +7,8 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
 
   device   the card, its power limit, and the torch/CUDA versions; no CUDA -> exit 1
   build    nvcc builds the three kernel libraries (csrc/nms.cu, attention.cu,
-           csp.cu) in parallel, each into a plain-C library
+           csp.cu) and the host PNG unfilter (csrc/png_unfilter.cu) in parallel,
+           each into a plain-C library
   kernels  K1 (batched greedy NMS) and K2 (single-image greedy NMS) against their
            plain PyTorch versions on the card, index for index, on seeded inputs
            from k 200 to 8192 and on a case of NaN scores and coordinates, +inf
@@ -77,6 +78,17 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            a request (the tiles' NMS at B 16, k 1024; the merge at B 2, k 2400),
            each launch's input held index for index against the plain NMS, and
            K1 timed on the merge's input
+  validate ``cli.validate`` in the reference protocol (rect, pad 0.5, 8 shape
+           buckets, conf 0.001, IoU 0.6, multi-label, max_nms 8192, max_det 300)
+           on skyeye_s at full width, nc 10, 1280 px, batch 16, over 48 PNG frames
+           it writes (32 of 1080x1920, 8 of 1500x2000, 8 of 1920x1080), labelled
+           from the facade's detections at conf 0.25 with the same seeded weights
+           (one .pt; jittered, some dropped, some added); K1's launches counted
+           over just that run; the same run with the plain NMS put in must give
+           every figure the same, and K1 index for index on every input the run
+           gave it (B 16, k 8192); K1 timed there; the host's decode and
+           letterbox a frame, and the C PNG unfilter (host code) against its
+           numpy version on a Paeth-filtered 1080p frame
 
 The serving phases reach K1 through the facade's default cut: late decode
 (``ops/late_decode.py``), per level on the raw logits, k = 1152 at conf 0.25 and
@@ -1261,6 +1273,191 @@ def phase_serve_tiled(torch, gpu_line):
                  launches=launches["batched_greedy_nms"])]
 
 
+# The validation set the smoke writes: (frames, height, width). Rect batches of
+# 16 at 1280 px come out as 736x1312 (the 32 wide frames) and 1312x1312 (the
+# other 16: aspect 0.75 and 1.78 share a batch).
+VALIDATION_FRAMES = ((32, 1080, 1920), (8, 1500, 2000), (8, 1920, 1080))
+VALIDATION_IMG, VALIDATION_BATCH = 1280, 16
+VALIDATION_K = 8192  # validate's max_nms: the multi-label cut keeps this many a frame
+DRONE_NAMES = ["pedestrian", "people", "bicycle", "car", "van", "truck", "tricycle",
+               "awning-tricycle", "bus", "motor"]  # configs/data/drone.yaml, nc 10
+
+
+def validation_frames(seed: int):
+    """Blocky seeded uint8 BGR frames of VALIDATION_FRAMES's shapes, in order."""
+    rng = np.random.RandomState(seed)
+    for count, h, w in VALIDATION_FRAMES:
+        for _ in range(count):
+            coarse = rng.randint(0, 256, (h // 32 + 1, w // 32 + 1, 3), dtype=np.uint8)
+            yield np.ascontiguousarray(coarse.repeat(32, axis=0).repeat(32, axis=1)[:h, :w])
+
+
+def write_labels(results, shapes, rng, path_of):
+    """YOLO label files from the facade's detections: boxes the facade clipped to
+    the frame are dropped (slivers), a fifth of the rest dropped, the others
+    jittered by N(0, 2) px; two stray boxes added a frame. Returns the count."""
+    n = 0
+    for i, (det, (h, w)) in enumerate(zip(results.xyxy, shapes)):
+        lines = []
+        for x1, y1, x2, y2, _, cls in det:
+            if rng.uniform() < 0.2 or min(x1, y1) <= 0 or x2 >= w or y2 >= h:
+                continue
+            x1, y1, x2, y2 = np.clip(np.array([x1, y1, x2, y2]) + rng.normal(0, 2, 4), 0,
+                                     [w, h, w, h])
+            if x2 - x1 >= 1 and y2 - y1 >= 1:
+                lines.append(f"{int(cls)} {(x1 + x2) / 2 / w:.6f} {(y1 + y2) / 2 / h:.6f} "
+                             f"{(x2 - x1) / w:.6f} {(y2 - y1) / h:.6f}")
+        for _ in range(2):
+            cx, cy = rng.uniform(0.2, 0.8, 2)
+            bw, bh = rng.uniform(0.02, 0.2, 2)
+            lines.append(f"{rng.randint(len(DRONE_NAMES))} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}")
+        path_of(i).write_text("\n".join(lines) + "\n")
+        n += len(lines)
+    return n
+
+
+def host_ms(fn, runs: int) -> float:
+    """Median host milliseconds of fn() over runs."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_validate(torch, gpu_line):
+    """``cli.validate`` on skyeye_s at 1280 px in the reference protocol: K1 once a
+    batch at (16, 8192), multi-label; the same run with the plain NMS put in."""
+    import tempfile
+    import zlib
+    from pathlib import Path
+
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.cli import validate as port_validate
+    from skyeye_tpu_torch.data import dataset, imageio
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.ops import nms as port_nms
+    from skyeye_tpu_torch.ops import nms_kernel
+    from skyeye_tpu_torch.utils.checkpoint import save_model
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="skyeye_val_") as tmp:
+        root = Path(tmp)
+        img_dir, lbl_dir = root / "images" / "val", root / "labels" / "val"
+        img_dir.mkdir(parents=True)
+        lbl_dir.mkdir(parents=True)
+        t0 = time.perf_counter()
+        frames_ = list(validation_frames(seed=20))
+        paths = [str(img_dir / f"frame{i:03d}.png") for i in range(len(frames_))]
+        shapes = [f.shape[:2] for f in frames_]
+        with ThreadPoolExecutor(8) as pool:  # zlib lets go of the interpreter lock
+            list(pool.map(imageio.imwrite_png, paths, frames_))
+        del frames_
+        write_s = time.perf_counter() - t0
+
+        # one set of seeded weights, in a .pt: the facade labels with it, validate reads it
+        weights = save_model(create_detector("skyeye_s", num_classes=len(DRONE_NAMES),
+                                             device="cuda", seed=0), root / "skyeye_s.pt")
+        labeller = SkyEyeDetector(weights=str(weights), img_size=VALIDATION_IMG,
+                                  conf_thres=0.25, device="cuda")
+        labelled = labeller(paths)  # image paths through imageio.imread (the C unfilter)
+        n_labels = write_labels(labelled, shapes, np.random.RandomState(21),
+                                lambda i: lbl_dir / f"frame{i:03d}.txt")
+        del labeller, labelled
+        data = {"path": str(root), "val": "images/val", "nc": len(DRONE_NAMES),
+                "names": DRONE_NAMES}
+        kw = dict(weights=str(weights), img_size=VALIDATION_IMG, rect=True,
+                  batch_size=VALIDATION_BATCH, device="cuda", project=str(root / "runs"))
+
+        nms_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        shipped = port_validate.validate(data, **kw)
+        torch.cuda.synchronize()
+        shipped_s = time.perf_counter() - t0
+        launches = dict(nms_kernel.LAUNCHES)
+        if launches["batched_greedy_nms"] == 0:
+            fail("validation never launched batched_greedy_nms")
+
+        # the same run with the plain NMS put in, every input K1 would get recorded
+        inputs = []
+
+        def plain(offset_boxes, scores, iou_thres, max_det):
+            inputs.append((offset_boxes.contiguous(), scores.contiguous(), iou_thres, max_det))
+            return nms_kernel.batched_greedy_nms_plain(offset_boxes, scores, iou_thres, max_det)
+
+        with mock.patch.object(port_nms, "greedy_nms_batched", plain):
+            with_plain = port_validate.validate(data, **kw)
+        figures = [float(v) for v in shipped[0]] + shipped[1].tolist()
+        plain_figures = [float(v) for v in with_plain[0]] + with_plain[1].tolist()
+        if figures != plain_figures:
+            fail(f"validation with K1 {figures} differs from the plain NMS's {plain_figures}")
+        if not all(np.isfinite(figures)) or not 0 <= figures[3] <= figures[2] <= 1:
+            fail(f"validation figures out of range: {figures}")
+        kept = hold_k1(torch, nms_kernel, inputs, "validate")
+        shapes_seen = sorted({tuple(s.shape) for _, s, _, _ in inputs})
+        full = (VALIDATION_BATCH, VALIDATION_K)
+        if full not in shapes_seen:
+            fail(f"K1's inputs on the validation path were {shapes_seen}, not {full}")
+        boxes, scores, iou, md = next(i for i in inputs if tuple(i[1].shape) == full)
+        idx, valid = nms_kernel.batched_greedy_nms(boxes, scores, iou, md)
+        bound, by = nms_bound(boxes, scores, valid, md)
+        order = nms_kernel.nms_order(boxes, scores)
+        k1 = dict(shape=list(full), positive=(scores > 0).sum(dim=1).tolist(),
+                  kept=valid.sum(dim=1).tolist(),
+                  walk_depth=walk_depth(order.order, order.n_pos, idx, valid),
+                  walk_limit=nms_kernel.walk_limit(full[1], md),
+                  ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms(boxes, scores, iou, md), 30),
+                  device_ms=graph_ms(lambda: nms_kernel.batched_greedy_nms(
+                      boxes, scores, iou, md), 30),
+                  plain_ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms_plain(
+                      boxes, scores, iou, md), 5),
+                  bound_ms=bound, bound_by=by)
+
+        # host work a frame: decode (imread) alone, and decode + resize + letterbox
+        ds = dataset.AerialDataset(img_dir, img_size=VALIDATION_IMG,
+                                   batch_size=VALIDATION_BATCH, rect=True, pad=0.5,
+                                   shape_buckets=8)
+        sample = range(0, len(ds), 8)
+        decode_ms = float(np.median([host_ms(lambda: imageio.imread(ds.img_files[i]), 1)
+                                     for i in sample]))
+        item_ms = float(np.median([host_ms(lambda: ds[i], 1) for i in sample]))
+
+        # the C unfilter against its numpy version on a 1080p frame of Paeth rows
+        frame = next(validation_frames(seed=22))
+        paeth = root / "paeth.png"
+        imageio.imwrite_png(paeth, frame, filter_type=4)
+        idat = b"".join(p for t, p in imageio._png_chunks(paeth.read_bytes()) if t == b"IDAT")
+        h, w = frame.shape[:2]
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * 3)
+        c_rows = imageio.unfilter(rows, 3, native=True)
+        plain_rows = imageio.unfilter_plain(rows, 3)
+        if not np.array_equal(c_rows, plain_rows) or not np.array_equal(
+                c_rows.reshape(h, w, 3)[:, :, ::-1], frame):
+            fail("the C unfilter differs from its numpy version on a Paeth-filtered frame")
+        unfilter = dict(frame=[h, w], filter_type=4, equal=True,
+                        c_ms=host_ms(lambda: imageio.unfilter(rows, 3, native=True), 10),
+                        plain_ms=host_ms(lambda: imageio.unfilter_plain(rows, 3), 2))
+
+    (mp, mr, map50, map_), (pre_ms, inf_ms, wall_ips) = shipped[0][:4], shipped[2]
+    emit("validate", model="skyeye_s", nc=len(DRONE_NAMES), img_size=VALIDATION_IMG,
+         rect=True, batch=VALIDATION_BATCH, frames=[list(f) for f in VALIDATION_FRAMES], labels=n_labels,
+         batch_shapes=ds.batch_shapes.tolist(),
+         k1_input_shapes=[list(s) for s in shapes_seen],
+         mAP50=float(map50), mAP50_95=float(map_), P=float(mp), R=float(mr),
+         plain_nms_figures_equal=True,
+         speed={"pre_process_ms_per_image": pre_ms, "inference_nms_ms_per_image": inf_ms,
+                "wall_images_per_s": wall_ips},
+         validate_s=shipped_s, png_write_s=write_s, phase_s=time.perf_counter() - t_phase,
+         host_ms_per_image={"decode": decode_ms, "decode_resize_letterbox": item_ms},
+         launches=launches, k1_on_plain_run=kept, k1_timed=k1, unfilter=unfilter,
+         card=gpu_line)
+    del inputs, boxes, scores, idx, valid, order
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="validate",
+                 launches=launches["batched_greedy_nms"])]
+
+
 def merge_by_kernel(entries):
     """One entry per kernel: the first one's numbers, ``launches`` summed over
     every path's entry and ``launches_by_path`` listing them."""
@@ -1281,6 +1478,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # fails where the port is absent
+    from skyeye_tpu_torch.data import imageio
     from skyeye_tpu_torch.ops import attention_kernel, csp_kernel, nms_kernel
 
     gpu_line = nvidia_smi()
@@ -1291,7 +1489,8 @@ def main() -> int:
     # one nvcc per source, all started together
     libraries = {"nms.cu": nms_kernel.nms_library,
                  "attention.cu": attention_kernel.attention_library,
-                 "csp.cu": csp_kernel.csp_library}
+                 "csp.cu": csp_kernel.csp_library,
+                 "png_unfilter.cu": imageio.png_unfilter_library}  # host code, no kernel
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         futures = {src: pool.submit(fn) for src, fn in libraries.items()}
@@ -1310,6 +1509,7 @@ def main() -> int:
     summary += phase_serve_enhanced(torch, gpu_line)
     summary += phase_serve_bf16(torch, gpu_line)
     summary += phase_serve_tiled(torch, gpu_line)
+    summary += phase_validate(torch, gpu_line)
     summary = merge_by_kernel(summary)
     for s in summary:
         kid, replaces, source = KERNELS[s["name"]]

@@ -1,9 +1,9 @@
 """Serving API: ``SkyEyeDetector`` facade and ``Results`` container.
 
-Port of the serving part of ``skyeye_tpu/api.py``: uint8 frames -> device
-letterbox and /255 -> detector (in its ``dtype``) -> candidate cut -> greedy
-NMS (one launch of the hand-written kernel per batch) -> boxes rescaled to each
-frame. The single-label default cuts on the raw logits per level and decodes
+Port of the serving part of ``skyeye_tpu/api.py``: uint8 frames (or PNG/BMP
+paths, read by ``data.imageio.imread``) -> device letterbox and /255 ->
+detector (in its ``dtype``) -> candidate cut -> greedy NMS (one launch of the
+hand-written kernel per batch) -> boxes rescaled to each frame. The single-label default cuts on the raw logits per level and decodes
 only the survivors (``ops/late_decode.py``); ``approx_topk=False`` or
 ``multi_label`` decodes everything and takes one global cut. Frames are grouped
 by shape and run in power-of-two batch buckets. Everything runs on the device
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .data.imageio import imread
 from .models.detector import create_detector
 from .models.head import decode_predictions
 from .ops.late_decode import topk_candidates
@@ -179,13 +180,9 @@ class SkyEyeDetector:
 
     def __call__(self, source, size: Optional[int] = None, multi_label: bool = False,
                  agnostic: bool = False) -> Results:
-        """Detect on one HWC BGR uint8 frame or a list of them."""
-        imgs = list(source) if isinstance(source, (list, tuple)) else [source]
-        for im in imgs:
-            if not isinstance(im, np.ndarray):
-                raise TypeError("SkyEyeDetector takes HWC BGR uint8 numpy frames; "
-                                f"got {type(im).__name__}")
-        paths = [f"array{i}.jpg" for i in range(len(imgs))]
+        """Detect on image path(s) or HWC BGR uint8 frame(s), as cv2 reads them.
+        Paths are read by ``data.imageio.imread`` (PNG and BMP; JPEG raises)."""
+        imgs, paths = self._load_sources(source)
         out_size = check_img_size(size or self.img_size, self.stride)
 
         t0 = time.perf_counter()
@@ -219,6 +216,23 @@ class SkyEyeDetector:
             "total_ms": total / max(len(imgs), 1) * 1000,
         }
         return Results(detections, imgs, paths, self.names, times)
+
+    @staticmethod
+    def _load_sources(source) -> Tuple[List[np.ndarray], List[str]]:
+        """Frames and their names: arrays as given, paths read from disk."""
+        items = source if isinstance(source, (list, tuple)) else [source]
+        imgs, paths = [], []
+        for it in items:
+            if isinstance(it, np.ndarray):
+                imgs.append(it)
+                paths.append(f"array{len(paths)}.jpg")
+            elif isinstance(it, (str, Path)):
+                imgs.append(imread(it))
+                paths.append(str(it))
+            else:
+                raise TypeError("SkyEyeDetector takes image paths or HWC BGR uint8 numpy "
+                                f"frames; got {type(it).__name__}")
+        return imgs, paths
 
 
 def _rescale(d: np.ndarray, gain: float, dw: float, dh: float, shape) -> np.ndarray:

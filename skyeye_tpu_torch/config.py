@@ -1,17 +1,21 @@
-"""Model configuration: the s/m/l family, anchors and strides.
+"""Model and dataset configuration: the s/m/l family, anchors and strides;
+the data YAML's schema.
 
-Port of ``skyeye_tpu/config.py`` (the ``ModelConfig`` plane). The five model
-configurations the repository ships under ``configs/models/`` are held here as
-plain Python literals, so the serving path needs no YAML parser; ``yaml`` is
-imported only inside :meth:`ModelConfig.from_yaml`, for a caller who passes a
-path. Anchors are in grid units per level (strides 8/16/32).
+Port of ``skyeye_tpu/config.py`` (``ModelConfig`` and ``DataConfig``). The five
+model configurations the repository ships under ``configs/models/`` are held
+here as plain Python literals, so the serving path needs no YAML parser;
+``yaml`` is imported only inside ``ModelConfig.from_yaml``, for a caller who
+passes a path; ``DataConfig.from_yaml`` reads the flat data schema itself, as
+the card's machine has no PyYAML. Anchors are in grid units per
+level (strides 8/16/32).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import re
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 # YOLOv5-convention anchors in grid units (pixel anchors / stride for strides 8/16/32).
 DEFAULT_ANCHORS: Tuple[Tuple[Tuple[float, float], ...], ...] = (
@@ -127,3 +131,125 @@ def load_model_config(cfg) -> ModelConfig:
     if stem.replace("skyeye_", "") in VARIANTS:
         return ModelConfig.from_variant(stem)
     raise FileNotFoundError(f"no model config named or found at {s!r}")
+
+
+_SCHEMA = ("path", "train", "val", "test", "nc", "names")
+_NULL = ("", "~", "null", "Null", "NULL")
+# Bare scalars that PyYAML reads as a bool, a float or an int other than a plain decimal.
+_TYPED = re.compile(r"(?i:yes|no|true|false|on|off|[-+]?\.inf|\.nan)"
+                    r"|[-+]?(?:[0-9][0-9_:]*(?:\.[0-9_]*)?|\.[0-9][0-9_]*)(?:[eE][-+]?[0-9]+)?"
+                    r"|[-+]?0[bBoOxX][0-9a-fA-F_]+")
+
+
+def _scalar(text: str):
+    """A scalar of the data YAML's flat schema: None (``~``, ``null`` or nothing),
+    a quoted or bare string, or a decimal int. Anything else (a bool, a float,
+    an escape, an anchor, a block scalar) raises, so the reader never gives
+    another answer than PyYAML."""
+    text = text.strip()
+    if text in _NULL:
+        return None
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        inner = text[1:-1]
+        if text[0] in inner or (text[0] == '"' and "\\" in inner):
+            raise ValueError(f"data YAML value {text!r} is outside the flat schema")
+        return inner
+    if re.fullmatch(r"[-+]?(?:0|[1-9][0-9]*)", text):
+        return int(text)
+    if text[0] in "'\"[]{}&*!|>%@`" or ": " in text or text.endswith(":") or _TYPED.fullmatch(text):
+        raise ValueError(f"data YAML value {text!r} is outside the flat schema (quote a string)")
+    return text
+
+
+def _flow(text: str):
+    """A value on a key's own line: a scalar, ``[a, b]`` or ``{0: a}``."""
+    if text[:1] not in ("[", "{"):
+        return _scalar(text)
+    if text[-1] != {"[": "]", "{": "}"}[text[0]]:
+        raise ValueError(f"data YAML value {text!r} is outside the flat schema")
+    items = [item for item in text[1:-1].split(",") if item.strip()]
+    if text[0] == "[":
+        return [_scalar(item) for item in items]
+    pairs = [item.split(":", 1) for item in items]
+    if any(len(pair) != 2 for pair in pairs):
+        raise ValueError(f"data YAML value {text!r} is outside the flat schema")
+    return {_scalar(k): _scalar(v) for k, v in pairs}
+
+
+def _read_flat_yaml(text: str) -> Dict[str, Any]:
+    """The data YAML's flat schema, read without PyYAML (the card's machine has
+    none): ``key: value`` (a scalar, ``[a, b]`` or ``{0: a}``), and a block list
+    (``- a``) or map (``0: a``) under a bare ``key:``. Keys outside the schema
+    are skipped with their blocks, as ``DataConfig`` ignores them; any other
+    construct raises."""
+    raw: Dict[str, Any] = {}
+    key = None  # the bare key whose block is being read
+    for line in text.splitlines():
+        line = "" if line.lstrip().startswith("#") else line.split(" #", 1)[0].rstrip()
+        if not line.strip():
+            continue
+        if line[0] not in " -":
+            name, sep, value = line.partition(":")
+            if not sep:
+                raise ValueError(f"data YAML line not understood: {line!r}")
+            name, value = name.strip(), value.strip()
+            if name not in _SCHEMA:
+                key = "skip"
+                continue
+            raw[name] = _flow(value)
+            key = name if not value else None
+            continue
+        if key == "skip":
+            continue
+        item = line.strip()
+        is_list = item == "-" or item.startswith("- ")
+        if key is None or not isinstance(raw[key], (type(None), list if is_list else dict)):
+            raise ValueError(f"data YAML line not understood: {line!r}")
+        if is_list:
+            raw[key] = (raw[key] or []) + [_scalar(item[1:])]
+        else:
+            k, sep, v = item.partition(":")
+            if not sep:
+                raise ValueError(f"data YAML line not understood: {line!r}")
+            raw[key] = {**(raw[key] or {}), _scalar(k): _scalar(v)}
+    return raw
+
+
+@dataclass
+class DataConfig:
+    """Dataset description (the reference's data-YAML schema)."""
+
+    path: str = ""
+    train: str = ""
+    val: str = ""
+    test: str = ""
+    nc: int = 80
+    names: List[str] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, raw: Dict[str, Any], root=None) -> "DataConfig":
+        """Split paths that are relative resolve against ``path`` where the dict
+        gives one, else against ``root`` (the YAML's folder), else stay as given."""
+        for attr in ("path", "train", "val", "test"):
+            if isinstance(raw.get(attr), (list, dict)):
+                raise ValueError(f"data {attr!r} must be one path, not {raw[attr]!r}")
+        names = raw.get("names") or []
+        if isinstance(names, dict):
+            names = [names[k] for k in sorted(names)]
+        cfg = cls(path=str(raw.get("path") or ""), train=str(raw.get("train") or ""),
+                  val=str(raw.get("val") or ""), test=str(raw.get("test") or ""),
+                  nc=int(raw.get("nc") or len(names) or 80), names=[str(n) for n in names])
+        if not cfg.names:
+            cfg.names = [str(i) for i in range(cfg.nc)]
+        base = Path(cfg.path) if cfg.path else (Path(root) if root is not None else None)
+        if base is not None:
+            for attr in ("train", "val", "test"):
+                v = getattr(cfg, attr)
+                if v and not Path(v).is_absolute():
+                    setattr(cfg, attr, str(base / v))
+        return cfg
+
+    @classmethod
+    def from_yaml(cls, path) -> "DataConfig":
+        raw = _read_flat_yaml(Path(path).read_text(errors="ignore"))
+        return cls.from_dict(raw, root=Path(path).parent)

@@ -1,0 +1,465 @@
+"""YOLO-format dataset with a label cache and rect batches, and a threaded
+batch loader, for validation.
+
+Port of ``skyeye_tpu/data/dataset.py``, the paths without augmentation:
+
+  * image discovery from a dir, a glob or a list file (``find_images``) and the
+    images/ -> labels/ mapping (``img2label_paths``);
+  * label verification that drops corrupt files (``verify_image_label``, on
+    ``imageio.image_size`` where JAX opens the file with PIL);
+  * the label cache at ``<labels dir>.cache``, keyed by a hash of sizes and
+    paths; the port writes JSON under its own version string, so neither
+    package reads the other's cache: each rebuilds it;
+  * rect batches by aspect ratio, bucketed to ``shape_buckets`` shapes;
+  * decode (``imageio.imread``) and the pre-resize of the longest side to
+    ``img_size`` (``resize_area`` when shrinking, else ``resize_linear``), then
+    the host ``letterbox``;
+  * ``BatchLoader``: fixed-shape batch dicts {images (B, H, W, 3) uint8 RGB,
+    targets (B, M, 6), mask (B, M), n_valid, indices}, assembled by a thread
+    pool ahead of the consumer; a short last batch is padded by repeating its
+    images, as JAX pads it (only ``n_valid`` rows count).
+
+Augmentation (mosaic, mixup, affine, HSV, flips) belongs to training, Slice C
+of ROADMAP.md: ``augment=True`` raises. JAX's native C++ decode path for square
+evaluation is not ported (ROADMAP.md); this is JAX's Python path, which also
+serves rect evaluation.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import math
+import os
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..ops.letterbox import letterbox
+from ..utils.general import LOGGER
+from .imageio import image_size, imread, resize_area, resize_linear
+
+IMG_FORMATS = ("bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp")
+VID_FORMATS = ("asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv")
+CACHE_VERSION = "skyeye_tpu_torch-0.1"
+AUGMENT_NOT_PORTED = ("augmentation belongs to training, which the port does not have yet "
+                      "(ROADMAP.md, Queue 1 item 6: Slice C)")
+
+
+def img2label_paths(img_paths: Sequence[str]) -> List[str]:
+    """images/ -> labels/, .ext -> .txt."""
+    sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
+    return [sb.join(p.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt" for p in img_paths]
+
+
+def get_hash(paths: Sequence[str]) -> str:
+    """md5 of the total size and the joined paths."""
+    size = sum(os.path.getsize(p) for p in paths if os.path.exists(p))
+    h = hashlib.md5(str(size).encode())
+    h.update("".join(paths).encode())
+    return h.hexdigest()
+
+
+def find_images(path) -> List[str]:
+    """Images in a dir (recursively), a glob, a list file, or a list of these."""
+    files: List[str] = []
+    for p in path if isinstance(path, (list, tuple)) else [path]:
+        p = Path(p)
+        if p.is_dir():
+            files += [str(f) for f in sorted(p.rglob("*.*"))]
+        elif p.is_file():
+            if p.suffix == ".txt":
+                root = p.parent
+                for line in p.read_text().splitlines():
+                    line = line.strip()
+                    if not line:
+                        continue
+                    files.append(str((root / line).resolve()) if line.startswith("./") else line)
+            else:
+                files.append(str(p))
+        else:
+            import glob as _glob
+
+            files += sorted(_glob.glob(str(p), recursive=True))
+    return sorted(f for f in files if f.rsplit(".", 1)[-1].lower() in IMG_FORMATS)
+
+
+def verify_image_label(args) -> Tuple[Optional[str], Optional[np.ndarray],
+                                      Optional[Tuple[int, int]], int, int, int, str]:
+    """Verify one (image, label) pair. Returns
+    (img_file, labels (n, 5), (w, h), n_found, n_missing, n_corrupt, msg)."""
+    img_file, label_file = args
+    try:
+        shape = image_size(img_file)  # (w, h)
+        if shape[0] < 10 or shape[1] < 10:
+            raise ValueError(f"image too small {shape}")
+
+        if os.path.isfile(label_file):
+            with open(label_file) as f:
+                rows = [x.split() for x in f.read().strip().splitlines() if len(x)]
+            labels = np.array(rows, dtype=np.float32) if rows else np.zeros((0, 5), np.float32)
+            if len(labels):
+                # segment polygons: class + >= 8 coordinates -> the polygon's box
+                if labels.shape[1] > 5:
+                    boxes = []
+                    for r in labels:
+                        xs, ys = r[1::2], r[2::2]
+                        boxes.append([r[0], (xs.min() + xs.max()) / 2, (ys.min() + ys.max()) / 2,
+                                      xs.max() - xs.min(), ys.max() - ys.min()])
+                    labels = np.array(boxes, np.float32)
+                if labels.shape[1] != 5:
+                    raise ValueError(f"labels require 5 columns, got {labels.shape[1]}")
+                if (labels < 0).any() or (labels[:, 1:] > 1).any():
+                    raise ValueError("non-normalized or negative label coordinates")
+                labels = np.unique(labels, axis=0)
+            return img_file, labels, shape, 1 if len(labels) else 0, 0 if len(labels) else 1, 0, ""
+        return img_file, np.zeros((0, 5), np.float32), shape, 0, 1, 0, ""
+    except Exception as e:  # a corrupt image or label file is counted and dropped
+        return None, None, None, 0, 0, 1, f"ignoring corrupt image/label {img_file}: {e}"
+
+
+class AerialDataset:
+    """Map-style YOLO dataset, without augmentation.
+
+    ``__getitem__`` returns (img (H, W, 3) uint8 BGR letterboxed, labels (n, 5)
+    [cls, x, y, w, h] normalized to the output canvas).
+    """
+
+    def __init__(
+        self,
+        path,
+        img_size: int = 640,
+        batch_size: int = 16,
+        augment: bool = False,
+        hyp: Optional[Dict[str, float]] = None,
+        rect: bool = False,
+        stride: int = 32,
+        pad: float = 0.0,
+        cache_images: bool = False,
+        max_labels: int = 300,
+        seed: int = 0,
+        shape_buckets: Optional[int] = None,
+    ):
+        if augment:  # hyp and seed belong to augmentation
+            raise NotImplementedError(AUGMENT_NOT_PORTED)
+        self.img_size = img_size
+        self.rect = rect
+        self.stride = stride
+        self.pad = pad
+        self.shape_buckets = shape_buckets
+        self.max_labels = max_labels
+
+        self.img_files = find_images(path)
+        if not self.img_files:
+            raise FileNotFoundError(f"no images found in {path}")
+        self.label_files = img2label_paths(self.img_files)
+
+        cache = self._load_or_build_cache()
+        # corrupt files are not in the cache: drop them (on a cache hit too, where
+        # JAX's dataset looks them up and raises a KeyError)
+        keep = [i for i, f in enumerate(self.img_files) if f in cache]
+        if len(keep) < len(self.img_files):
+            LOGGER.warning("dropped %d corrupt images", len(self.img_files) - len(keep))
+            self.img_files = [self.img_files[i] for i in keep]
+            self.label_files = [self.label_files[i] for i in keep]
+        self.labels = [cache[f][0] for f in self.img_files]
+        self.shapes = np.array([cache[f][1] for f in self.img_files], np.float64)  # (w, h)
+        n = len(self.img_files)
+        self.n = n
+        self.indices = np.arange(n)
+        self.batch_index = np.floor(np.arange(n) / batch_size).astype(int)
+
+        if self.rect:
+            self._setup_rect_batches(batch_size)
+
+        self.ims: List[Optional[np.ndarray]] = [None] * n
+        self.im_hw0: List[Optional[Tuple[int, int]]] = [None] * n
+        self.im_hw: List[Optional[Tuple[int, int]]] = [None] * n
+        if cache_images:
+            with ThreadPoolExecutor(8) as ex:
+                for i, (im, hw0, hw) in enumerate(ex.map(self._load_image_raw, range(n))):
+                    self.ims[i], self.im_hw0[i], self.im_hw[i] = im, hw0, hw
+
+    # -- caching ---------------------------------------------------------------
+
+    def _cache_path(self) -> Path:
+        lbl = Path(self.label_files[0])
+        return (lbl.parent if lbl.parent.exists() else Path(self.img_files[0]).parent
+                ).with_suffix(".cache")
+
+    def _load_or_build_cache(self) -> Dict:
+        cache_path = self._cache_path()
+        want_hash = get_hash(self.label_files + self.img_files)
+        if cache_path.is_file():
+            try:
+                data = json.loads(cache_path.read_text())
+            except (ValueError, UnicodeDecodeError):  # another writer's cache
+                data = None
+            if isinstance(data, dict) and data.get("version") == CACHE_VERSION \
+                    and data.get("hash") == want_hash:
+                return {f: (np.array(lb, np.float32).reshape(-1, 5), tuple(shape))
+                        for f, (lb, shape) in data["items"].items()}
+
+        items: Dict = {}
+        nf = nm = nc = 0
+        with ThreadPoolExecutor(8) as ex:
+            for img, labels, shape, f, m, c, msg in ex.map(
+                verify_image_label, zip(self.img_files, self.label_files)
+            ):
+                nf += f
+                nm += m
+                nc += c
+                if msg:
+                    LOGGER.warning(msg)
+                if img is not None:
+                    items[img] = (labels, shape)
+        LOGGER.info("dataset scan: %d labeled, %d background, %d corrupt", nf, nm, nc)
+        payload = {"version": CACHE_VERSION, "hash": want_hash,
+                   "items": {f: (lb.tolist(), list(shape)) for f, (lb, shape) in items.items()}}
+        tmp = cache_path.with_name(cache_path.name + f".{os.getpid()}.tmp")
+        try:
+            tmp.write_text(json.dumps(payload))
+            os.replace(tmp, cache_path)
+        except OSError as e:
+            LOGGER.warning("cache not saved: %s", e)
+        return items
+
+    # -- rect batching ------------------------------------------------------------
+
+    def _setup_rect_batches(self, batch_size: int):
+        ar = self.shapes[:, 1] / self.shapes[:, 0]  # h / w
+        order = ar.argsort()
+        self.img_files = [self.img_files[i] for i in order]
+        self.label_files = [self.label_files[i] for i in order]
+        self.labels = [self.labels[i] for i in order]
+        self.shapes = self.shapes[order]
+        ar = ar[order]
+
+        nb = self.batch_index[-1] + 1
+        shapes = []
+        for i in range(nb):
+            ari = ar[self.batch_index == i]
+            mini, maxi = ari.min(), ari.max()
+            if maxi < 1:
+                shapes.append([maxi, 1])
+            elif mini > 1:
+                shapes.append([1, 1 / mini])
+            else:
+                shapes.append([1, 1])
+        self.batch_shapes = (
+            np.ceil(np.array(shapes) * self.img_size / self.stride + self.pad).astype(int)
+            * self.stride
+        )
+        if self.shape_buckets:
+            # at most shape_buckets distinct shapes: round them UP (padding only,
+            # never a crop) on a coarser and coarser stride grid. JAX bounds its
+            # compiles this way; the port keeps it so that batches have JAX's
+            # shapes, and so its detections
+            q = self.stride
+            quant = self.batch_shapes
+            while len({tuple(s) for s in quant.tolist()}) > self.shape_buckets:
+                q *= 2
+                quant = (np.ceil(self.batch_shapes / q) * q).astype(int)
+            self.batch_shapes = quant
+
+    # -- image IO -------------------------------------------------------------------
+
+    def _load_image_raw(self, i: int):
+        """Decode, then bring the longest side to img_size (aspect kept)."""
+        im = self.ims[i]
+        if im is not None:
+            return im, self.im_hw0[i], self.im_hw[i]
+        im = imread(self.img_files[i])
+        h0, w0 = im.shape[:2]
+        r = self.img_size / max(h0, w0)
+        if r != 1:
+            resize = resize_linear if r > 1 else resize_area
+            im = resize(im, (int(w0 * r), int(h0 * r)))
+        return im, (h0, w0), im.shape[:2]
+
+    # -- item -------------------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
+        index = int(self.indices[index])
+        img, (h0, w0), (h, w) = self._load_image_raw(index)
+        shape = (self.batch_shapes[self.batch_index[index]] if self.rect
+                 else (self.img_size, self.img_size))
+        img, ratio, pad = letterbox(img, tuple(shape), auto=False, scaleup=False)
+        labels = self.labels[index].copy()
+        if len(labels):
+            labels_xyxy = np.stack(
+                [
+                    labels[:, 0],
+                    ratio[0] * w * (labels[:, 1] - labels[:, 3] / 2) + pad[0],
+                    ratio[1] * h * (labels[:, 2] - labels[:, 4] / 2) + pad[1],
+                    ratio[0] * w * (labels[:, 1] + labels[:, 3] / 2) + pad[0],
+                    ratio[1] * h * (labels[:, 2] + labels[:, 4] / 2) + pad[1],
+                ],
+                1,
+            )
+        else:
+            labels_xyxy = np.zeros((0, 5), np.float32)
+        h, w = img.shape[:2]
+
+        # xyxy pixels -> xywh normalized
+        if len(labels_xyxy):
+            labels = np.stack(
+                [
+                    labels_xyxy[:, 0],
+                    (labels_xyxy[:, 1] + labels_xyxy[:, 3]) / 2 / w,
+                    (labels_xyxy[:, 2] + labels_xyxy[:, 4]) / 2 / h,
+                    (labels_xyxy[:, 3] - labels_xyxy[:, 1]) / w,
+                    (labels_xyxy[:, 4] - labels_xyxy[:, 2]) / h,
+                ],
+                1,
+            ).astype(np.float32)
+        else:
+            labels = np.zeros((0, 5), np.float32)
+        return np.ascontiguousarray(img), labels
+
+    def padded_labels(self, labels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(n, 5) -> fixed (max_labels, 6) [img=0, cls, xywh] + mask."""
+        out = np.zeros((self.max_labels, 6), np.float32)
+        mask = np.zeros((self.max_labels,), bool)
+        n = min(len(labels), self.max_labels)
+        if n:
+            out[:n, 1:] = labels[:n]
+            mask[:n] = True
+        return out, mask
+
+
+class BatchLoader:
+    """Threaded loader of fixed-shape batch dicts, ``prefetch`` batches ahead."""
+
+    def __init__(
+        self,
+        dataset: AerialDataset,
+        batch_size: int = 16,
+        shuffle: bool = False,
+        workers: int = 4,
+        prefetch: int = 2,
+        drop_last: bool = False,
+        seed: int = 0,
+        bgr_to_rgb: bool = True,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.workers = workers
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+        self.rng = np.random.default_rng(seed)
+        self.bgr_to_rgb = bgr_to_rgb
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
+
+    def _item(self, i: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        img, labels = self.dataset[i]
+        if self.bgr_to_rgb:
+            img = img[:, :, ::-1]
+        t, m = self.dataset.padded_labels(labels)
+        return np.ascontiguousarray(img), t, m
+
+    def _assemble(self, idxs: Sequence[int], futures) -> Dict[str, np.ndarray]:
+        imgs, tgts, masks = (list(col) for col in zip(*(f.result() for f in futures)))
+        # a short last batch is filled with its own images again (JAX keeps one
+        # compiled shape this way); consumers read only the n_valid first rows
+        n_valid = len(imgs)
+        while len(imgs) < self.batch_size:
+            j = (len(imgs) - n_valid) % n_valid
+            imgs.append(imgs[j])
+            tgts.append(tgts[j])
+            masks.append(masks[j])
+        return {
+            "images": np.stack(imgs),
+            "targets": np.stack(tgts),
+            "mask": np.stack(masks),
+            "n_valid": np.asarray(n_valid, np.int32),
+            "indices": np.asarray(list(idxs) + [-1] * (self.batch_size - n_valid)),
+        }
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            self.rng.shuffle(order)
+        self.epoch += 1
+        batches = [order[i: i + self.batch_size] for i in range(0, n, self.batch_size)]
+        if self.drop_last and len(batches[-1]) < self.batch_size:
+            batches = batches[:-1]
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+        err: list = []
+
+        def producer():
+            # a batch's frames are spread over the workers, and are submitted
+            # at most prefetch + 1 batches ahead of the queue, so the host holds
+            # a bounded number of decoded frames
+            try:
+                with ThreadPoolExecutor(self.workers) as ex:
+                    pending: Deque = deque()
+                    for idxs in batches:
+                        pending.append((idxs, [ex.submit(self._item, i) for i in idxs]))
+                        if len(pending) > self.prefetch:
+                            q.put(self._assemble(*pending.popleft()))
+                    while pending:
+                        q.put(self._assemble(*pending.popleft()))
+            except Exception as e:  # raised again on the consumer's side
+                err.append(e)
+            finally:
+                q.put(stop)
+
+        threading.Thread(target=producer, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is stop:
+                if err:
+                    raise err[0]
+                return
+            yield item
+
+
+def create_dataloader(
+    path,
+    img_size: int = 640,
+    batch_size: int = 16,
+    stride: int = 32,
+    augment: bool = False,
+    hyp: Optional[Dict[str, float]] = None,
+    rect: bool = False,
+    pad: float = 0.0,
+    workers: int = 4,
+    shuffle: Optional[bool] = None,
+    cache_images: bool = False,
+    max_labels: int = 300,
+    seed: int = 0,
+    shape_buckets: Optional[int] = None,
+) -> Tuple[BatchLoader, AerialDataset]:
+    """(loader, dataset), JAX's ``create_dataloader`` signature."""
+    dataset = AerialDataset(
+        path, img_size=img_size, batch_size=batch_size, augment=augment, hyp=hyp,
+        rect=rect, stride=stride, pad=pad, cache_images=cache_images,
+        max_labels=max_labels, seed=seed, shape_buckets=shape_buckets,
+    )
+    loader = BatchLoader(
+        dataset, batch_size=batch_size,
+        shuffle=(augment if shuffle is None else shuffle) and not rect,
+        workers=workers, seed=seed,
+    )
+    return loader, dataset
+
+
+def load_dataset(path, **kw) -> AerialDataset:
+    """Dataset constructor (the reference's ``load_dataset``)."""
+    return AerialDataset(path, **kw)

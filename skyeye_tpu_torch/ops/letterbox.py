@@ -1,18 +1,58 @@
-"""On-device letterbox: aspect-preserving bilinear resize plus gray padding.
+"""Letterbox: aspect-preserving resize plus gray padding, on the host and on the device.
 
-Port of ``letterbox_params`` and ``letterbox_jax``/``letterbox_batch_jax`` in
-``skyeye_tpu/ops/letterbox.py``. The resize is the same two one-dimensional
-gathers and lerps (rows first, then columns) with the same sample positions, so
-it matches the JAX version; ``F.interpolate`` samples differently and is not
-used. The host letterbox (``cv2``) is not part of the port yet.
+Port of ``skyeye_tpu/ops/letterbox.py``. ``letterbox`` is the host version
+(numpy, the dataset's path): JAX's cv2 branch, ``cv2.resize(INTER_LINEAR)`` then
+``cv2.copyMakeBorder``, with ``data.imageio.resize_linear`` for the resize (bit
+for bit the same). ``letterbox_params`` and ``letterbox_batch`` are the device
+version (``letterbox_jax``/``letterbox_batch_jax``): the same two
+one-dimensional gathers and lerps (rows first, then columns) with the same
+sample positions, so it matches the JAX version; ``F.interpolate`` samples
+differently and is not used.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 PAD_VALUE = 114
+
+
+def letterbox(im: np.ndarray, new_shape=(640, 640), color=(PAD_VALUE, PAD_VALUE, PAD_VALUE),
+              auto: bool = True, scale_fill: bool = False, scaleup: bool = True,
+              stride: int = 32):
+    """Host letterbox of an (H, W, C) uint8 image with the reference's semantics.
+
+    Returns (img, (rw, rh), (dw, dh)), as JAX's ``letterbox`` with cv2 does."""
+    from ..data.imageio import resize_linear
+
+    shape = im.shape[:2]  # (h, w)
+    if isinstance(new_shape, int):
+        new_shape = (new_shape, new_shape)
+    r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
+    if not scaleup:  # only scale down (better val mAP)
+        r = min(r, 1.0)
+    ratio = (r, r)
+    new_unpad = (int(round(shape[1] * r)), int(round(shape[0] * r)))  # (w, h)
+    dw, dh = new_shape[1] - new_unpad[0], new_shape[0] - new_unpad[1]
+    if auto:  # minimum rectangle: pad only to a stride multiple
+        dw, dh = dw % stride, dh % stride
+    elif scale_fill:  # stretch
+        dw, dh = 0, 0
+        new_unpad = (new_shape[1], new_shape[0])
+        ratio = (new_shape[1] / shape[1], new_shape[0] / shape[0])
+    dw /= 2
+    dh /= 2
+    if shape[::-1] != new_unpad:
+        im = resize_linear(im, new_unpad)
+    top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
+    left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
+    h, w = im.shape[:2]
+    out = np.empty((top + h + bottom, left + w + right) + im.shape[2:], im.dtype)
+    out[...] = np.asarray(color[: im.shape[2]] if im.ndim == 3 else color[0], im.dtype)
+    out[top: top + h, left: left + w] = im
+    return out, ratio, (dw, dh)
 
 
 def letterbox_params(in_shape, out_shape, scaleup: bool = True):

@@ -15,8 +15,9 @@ into flax paths, then through ``from_jax_variables``; ``merge_matching`` loads
 it by shape, leaving the rest of a module's weights as they are, and
 ``load_model`` is the facade's loader (the port of JAX's ``load_model``).
 
-``fuse_conv_bn`` folds BatchNorm into the preceding conv, on the port's own
-``state_dict``.
+``save_model`` writes the port's own ``state_dict`` and config to a ``.pt``
+that ``load_model`` reads back without conversion. ``fuse_conv_bn`` folds
+BatchNorm into the preceding conv, on the port's own ``state_dict``.
 """
 from __future__ import annotations
 
@@ -214,14 +215,29 @@ def convert_torch_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.T
     return from_jax_variables(flat)
 
 
+PORT_LAYOUT = "skyeye_tpu_torch"  # a .pt that holds the port's own state_dict
+
+
+def save_model(module: torch.nn.Module, path) -> Path:
+    """Write ``module``'s own ``state_dict`` and config to a ``.pt`` that
+    ``load_model`` (and so ``SkyEyeDetector(weights=...)``) reads back as it is."""
+    path = Path(path)
+    torch.save({"layout": PORT_LAYOUT, "config": module.config.to_dict(),
+                "state_dict": {k: v.detach().cpu() for k, v in module.state_dict().items()}},
+               path)
+    return path
+
+
 def load_torch_checkpoint(path) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """Read a reference-layout ``.pt``: ``{"model": module, ...}``, ``{"state_dict":
-    ..., ...}`` or a bare ``state_dict`` (or a bare module). Returns the port's
-    ``state_dict`` entries and the file's other fields (``config`` among them,
-    where ``export_torch`` wrote it). A ``.pt`` is a pickle: load only files you
-    trust."""
+    ..., ...}`` or a bare ``state_dict`` (or a bare module); or one that
+    ``save_model`` wrote. Returns the port's ``state_dict`` entries and the
+    file's other fields (``config`` among them, where ``export_torch`` or
+    ``save_model`` wrote it). A ``.pt`` is a pickle: load only files you trust."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     meta: Dict[str, Any] = {}
+    if isinstance(ckpt, dict) and ckpt.get("layout") == PORT_LAYOUT:
+        return dict(ckpt["state_dict"]), {k: v for k, v in ckpt.items() if k != "state_dict"}
     if isinstance(ckpt, dict) and "model" in ckpt and hasattr(ckpt["model"], "state_dict"):
         sd = ckpt["model"].float().state_dict()
         meta = {k: v for k, v in ckpt.items() if k != "model"}

@@ -1,11 +1,16 @@
-"""Small helpers shared by the port: device resolution and image-size rounding."""
+"""Small helpers shared by the port: device resolution, image-size rounding,
+run directories and the dataset description."""
 from __future__ import annotations
 
 import logging
 import math
+import os
+from pathlib import Path
 from typing import Union
 
 import torch
+
+from ..config import DataConfig
 
 LOGGER = logging.getLogger("skyeye_tpu_torch")
 
@@ -30,3 +35,47 @@ def check_img_size(imgsz: int, s: int = 32) -> int:
     if new != imgsz:
         LOGGER.warning("img size %s must be a multiple of %d, using %s", imgsz, s, new)
     return new
+
+
+def increment_path(path, exist_ok: bool = False, sep: str = "", mkdir: bool = False) -> Path:
+    """runs/exp -> runs/exp2, exp3, ... (``skyeye_tpu.utils.general.increment_path``)."""
+    path = Path(path)
+    if path.exists() and not exist_ok:
+        path, suffix = (path.with_suffix(""), path.suffix) if path.is_file() else (path, "")
+        for n in range(2, 9999):
+            p = f"{path}{sep}{n}{suffix}"
+            if not os.path.exists(p):
+                path = Path(p)
+                break
+    if mkdir:
+        path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def check_file(file) -> str:
+    """A path as given when it is a file, else the first file of that name under
+    the repository's ``configs/`` (``skyeye_tpu.utils.general.check_file``; no
+    download)."""
+    file = str(file)
+    if not file or Path(file).is_file():
+        return file
+    hits = sorted((Path(__file__).resolve().parents[2] / "configs").rglob(Path(file).name))
+    if hits:
+        return str(hits[0])
+    raise FileNotFoundError(f"file not found: {file}")
+
+
+def check_dataset(data):
+    """A ``DataConfig`` from a ``DataConfig``, a dict of the data-YAML schema or a
+    YAML path, its split paths resolved; a split that is not there is logged."""
+    if isinstance(data, DataConfig):
+        cfg = data
+    elif isinstance(data, dict):
+        cfg = DataConfig.from_dict(data)
+    else:
+        cfg = DataConfig.from_yaml(check_file(data))
+    for split in ("train", "val"):
+        p = getattr(cfg, split)
+        if p and not Path(p).exists():
+            LOGGER.warning("dataset split %s not found at %s", split, p)
+    return cfg

@@ -133,6 +133,32 @@ def test_stage_hook_sees_each_stage_of_every_batch_in_order(detectors):
             np.testing.assert_array_equal(g, w)
 
 
+def test_paths_and_arrays_of_the_same_frames_give_the_same_detections(detectors, tmp_path):
+    """Image paths go through ``data.imageio.imread`` (PNG, BMP), as JAX's go
+    through ``cv2.imread``; JPEG paths raise, naming the roadmap."""
+    import cv2
+
+    _, port = detectors
+    port.conf_thres, port.approx_topk = 0.005, True
+    frames = _frames()
+    paths = []
+    for i, frame in enumerate(frames):
+        paths.append(str(tmp_path / f"frame{i}.{'bmp' if i == 1 else 'png'}"))
+        cv2.imwrite(paths[-1], frame)
+    by_path, by_array = port(paths), port(frames)
+    assert by_path.paths == paths and by_array.paths[0] == "array0.jpg"
+    assert sum(len(d) for d in by_array.xyxy) > 0
+    for g, w in zip(by_path.xyxy, by_array.xyxy):
+        np.testing.assert_array_equal(g, w)
+    mixed = port([paths[0], frames[1]])
+    np.testing.assert_array_equal(mixed.xyxy[1], by_array.xyxy[1])
+    cv2.imwrite(str(tmp_path / "frame.jpg"), frames[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port(str(tmp_path / "frame.jpg"))
+    with pytest.raises(TypeError):
+        port([frames[0], 3])
+
+
 def test_batch_buckets_match_jax():
     for n in (0, 1, 5, 16, 23, 40):
         assert SkyEyeDetector._batch_buckets(n) == JaxDetector._batch_buckets(n)
@@ -157,6 +183,9 @@ def test_main_path_imports_no_jax():
         "import skyeye_tpu_torch.tools.attention_precision\n"
         "import skyeye_tpu_torch.ops.late_decode, skyeye_tpu_torch.ops.tiling\n"
         "import skyeye_tpu_torch.utils.checkpoint\n"
+        "import skyeye_tpu_torch.data.dataset, skyeye_tpu_torch.data.imageio\n"
+        "import skyeye_tpu_torch.data.prefetch, skyeye_tpu_torch.utils.metrics\n"
+        "import skyeye_tpu_torch.utils.coco_eval, skyeye_tpu_torch.cli.validate\n"
         "import chip_smoke\n"
         "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
