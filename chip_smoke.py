@@ -89,11 +89,36 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            gave it (B 16, k 8192); K1 timed there; the host's decode and
            letterbox a frame, and the C PNG unfilter (host code) against its
            numpy version on a Paeth-filtered 1080p frame
+  train    ``cli.train`` on skyeye_s at full width and depth, nc 10, float32 with
+           TF32 off, 640 px, batch 16, device augmentation with DEFAULT_HYP,
+           accumulate 4, 3 epochs of 3 batches over validate's 48 frames (train
+           and val), validation on the EMA weights after each epoch (K1's
+           launches counted over the run, each input it got held index for index
+           against the plain NMS, K1 timed on the first); every loss finite, the
+           parameters changed at micro-steps 4 and 8 only, EMA's counter and the
+           step 9, ``results.csv`` whole, ``last.pt`` served by the facade and
+           validated (``validate(weights=)``) to its epoch's row; then, on the
+           run's first batch and draws: the micro-step split by CUDA events
+           (augment, forward, loss, backward, optimizer + EMA), its loss equal to
+           the run's first, its loss and every gradient against float64 on the
+           card, bf16's loss against float32's, the dense form of the loss
+           (finite; its forward and backward timed beside the gather form's),
+           and 10 steps on that batch
+           without augmentation lowering the loss; the loader's host ms a frame,
+           images/s and each epoch's wall time, peak memory
+  train_transformer
+           skyeye_l_transformer at full width and depth, 640 px, batch 16: the
+           first micro-step's loss and every gradient with K4 against the same
+           model with ``attention_reference`` put in (the same dropout masks),
+           3 micro-steps (K4's launches counted: one a forward), ms a micro-step,
+           peak memory, K4 timed on the input the step gave it beside
+           ``scaled_dot_product_attention``
 
 The serving phases reach K1 through the facade's default cut: late decode
 (``ops/late_decode.py``), per level on the raw logits, k = 1152 at conf 0.25 and
 4096 at 0.001. Then a ``{"kernels": [...]}`` line (a kernel's ``launches`` summed
-over the paths in ``launches_by_path``), the ``nvidia-smi`` name and
+over the paths in ``launches_by_path``: K1's include ``train``, K4's
+``train_transformer``), the ``nvidia-smi`` name and
 power-limit line, and, last, ``{"ok": true, "device": {...}}``. A watchdog ends
 a hung run with a traceback and a non-zero exit. Imports torch, numpy and the
 port only.
@@ -101,9 +126,11 @@ port only.
 from __future__ import annotations
 
 import faulthandler
+import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -1326,10 +1353,11 @@ def host_ms(fn, runs: int) -> float:
     return float(np.median(times))
 
 
-def phase_validate(torch, gpu_line):
+def phase_validate(torch, gpu_line, workdir):
     """``cli.validate`` on skyeye_s at 1280 px in the reference protocol: K1 once a
-    batch at (16, 8192), multi-label; the same run with the plain NMS put in."""
-    import tempfile
+    batch at (16, 8192), multi-label; the same run with the plain NMS put in. The
+    frames, labels and weights stay in ``workdir`` for the train phases."""
+    import contextlib
     import zlib
     from pathlib import Path
 
@@ -1342,7 +1370,7 @@ def phase_validate(torch, gpu_line):
     from skyeye_tpu_torch.utils.checkpoint import save_model
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="skyeye_val_") as tmp:
+    with contextlib.nullcontext(str(workdir)) as tmp:
         root = Path(tmp)
         img_dir, lbl_dir = root / "images" / "val", root / "labels" / "val"
         img_dir.mkdir(parents=True)
@@ -1458,6 +1486,420 @@ def phase_validate(torch, gpu_line):
                  launches=launches["batched_greedy_nms"])]
 
 
+TRAIN_IMG, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 3  # JAX's defaults; 3 batches an epoch
+TRAIN_ACCUMULATE = 4  # JAX's default at batch 16 (nominal batch 64)
+# float32 (TF32 off) gradients against float64 on the run's first augmented batch
+# (the same every run), of each tensor's max|g|: 1.23e-3 at worst on the card
+# (spp4.cv1's kernel; two runs, equal to every digit). Most of that gap is SPP's
+# max pools picking another winner in float64 (0.3-0.8% of the 5x5 windows):
+# upstream of SPP it moves whole gradient terms, so on other batches the worst
+# leaf reads 3.3e-4 to 1.3e-2, the same with max_pool2d in the pools
+# (``python3 -m skyeye_tpu_torch.tools.train_grad_noise``). The limit holds for
+# this batch only; other data needs a reading of its own.
+GRAD_VS_FLOAT64_REL = 3e-3
+# K4 against attention_reference in a train step on the same batch, of each
+# gradient's max|g|: 3.58e-4 at worst (head.transformer2.ff1; two runs, equal).
+# On the tool's three other batches 3.9e-4 to 5.9e-3, where the reference itself
+# is 5.7e-3 to 1.5e-2 from float64 and K4 is no farther from float64 than it is:
+# float32's own gap on this model exceeds 1e-4, so the limit is 1e-3.
+K4_TRAIN_GRAD_REL = 1e-3
+BF16_REL, BF16_ABS = 0.05, 1e-2  # the bf16 bound: 0.05 x max|a| + 1e-2
+
+
+def assignment_collisions(torch, model, images_nhwc, targets, mask):
+    """Per level: assignments (after the anchor-ratio filter) that share an
+    (image, cell, anchor) with another."""
+    from skyeye_tpu_torch.config import DEFAULT_HYP
+    from skyeye_tpu_torch.losses.detection import build_targets_level
+    from skyeye_tpu_torch.tools.train_grad_noise import flat_targets
+
+    anchors = torch.as_tensor(np.asarray(model.config.anchors, np.float32), device="cuda")
+    h, w = images_nhwc.shape[1:3]
+    out = []
+    for i, stride in enumerate(model.config.strides):
+        hw = (h // int(stride), w // int(stride))
+        asg = build_targets_level(flat_targets(targets), mask.reshape(-1), anchors[i], hw,
+                                  DEFAULT_HYP["anchor_t"])
+        m = asg["mask"]
+        cell = ((asg["b"][m] * hw[0] + asg["gj"][m]) * hw[1] + asg["gi"][m]) * anchors.shape[1] \
+            + asg["a"][m]
+        out.append(int(m.sum()) - int(torch.unique(cell).numel()))
+    return out
+
+
+def loss_forward_backward_ms(torch, model, loss_fns, images_nhwc, targets, mask):
+    """Each loss's forward and backward on one train-mode forward's logits, timed."""
+    from skyeye_tpu_torch.tools.train_grad_noise import flat_targets
+    from skyeye_tpu_torch.train import set_dropout_generator, step_generator
+
+    model.train()
+    set_dropout_generator(model, step_generator(0, 0, "cuda"))
+    with torch.no_grad():
+        outs = [o.detach().requires_grad_(True) for o in model(images_nhwc.permute(0, 3, 1, 2))]
+    set_dropout_generator(model, None)
+    flat, m = flat_targets(targets), mask.reshape(-1)
+    return {name: cuda_ms(lambda: fn(outs, flat, m)[0].backward(), 20)
+            for name, fn in loss_fns.items()}
+
+
+def first_batch(torch, data, img, seed=0):
+    """The first batch the train loader gives (its seed-0 shuffle), on the card."""
+    from skyeye_tpu_torch.data.dataset import create_dataloader
+
+    loader, ds = create_dataloader(data["path"] + "/" + data["train"], img_size=img,
+                                   batch_size=TRAIN_BATCH, stride=32, augment=False,
+                                   workers=4, seed=seed, shuffle=True)
+    b = next(iter(loader))
+    return ({k: torch.from_numpy(np.asarray(b[k])).cuda() for k in ("images", "targets", "mask")},
+            ds)
+
+
+def phase_train(torch, gpu_line, workdir):
+    """``cli.train`` on skyeye_s at full width and depth, 640 px, batch 16, device
+    augmentation, per-epoch validation on EMA weights through K1."""
+    from pathlib import Path
+
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.cli import train as port_train
+    from skyeye_tpu_torch.cli import validate as port_validate
+    from skyeye_tpu_torch.config import DEFAULT_HYP
+    from skyeye_tpu_torch.data.device_aug import augment_batch_device
+    from skyeye_tpu_torch.losses import ComputeLoss
+    from skyeye_tpu_torch.models.detector import SkyEyeDetectorModule, create_detector
+    from skyeye_tpu_torch.ops import nms_kernel
+    from skyeye_tpu_torch.train import (
+        RuntimeOptimizer, create_train_state, make_train_step, optimizer, step_generator,
+    )
+    from skyeye_tpu_torch.tools.train_grad_noise import error_summary, grad_errors, loss_and_grads
+    from skyeye_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    t_phase = time.perf_counter()
+    root = Path(workdir)
+    weights = root / "skyeye_s.pt"
+    data = {"path": str(root), "train": "images/val", "val": "images/val",
+            "nc": len(DRONE_NAMES), "names": DRONE_NAMES}
+
+    # -- the run, observed: each micro-step's host time and loss, whether the
+    # parameters changed, each validation's wall time and K1's inputs
+    steps, vals, emitted = [], [], []
+    real_make, real_validate, real_opt_step = (port_train.make_train_step,
+                                               port_validate.validate,
+                                               optimizer.RuntimeOptimizer.step)
+
+    def timed_make(*a, **k):
+        step = real_make(*a, **k)
+
+        def run(state, batch):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            steps.append((t0, m["loss"]))
+            return state, m
+        return run
+
+    def timed_validate(*a, **k):
+        t0 = time.perf_counter()
+        out = real_validate(*a, **k)
+        vals.append((t0, time.perf_counter()))
+        return out
+
+    def watched_step(self, model):
+        before = [p.detach().clone() for p in model.parameters()]
+        changed = real_opt_step(self, model)
+        moved = any(not torch.equal(b, p) for b, p in zip(before, model.parameters()))
+        emitted.append((changed, moved))
+        return changed
+
+    nms_kernel.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(port_train, "make_train_step", timed_make), \
+            mock.patch.object(port_validate, "validate", timed_validate), \
+            mock.patch.object(optimizer.RuntimeOptimizer, "step", watched_step):
+        k1_inputs = record_k1_inputs(lambda: port_train.train(
+            cfg="skyeye_s", data=data, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+            img_size=TRAIN_IMG, weights=str(weights), device_aug=True,
+            project=str(root / "runs_train"), name="exp", seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(nms_kernel.LAUNCHES)
+    if launches["batched_greedy_nms"] == 0:
+        fail("training's per-epoch validation never launched batched_greedy_nms")
+    kept = hold_k1(torch, nms_kernel, k1_inputs, "train")
+    boxes, scores, iou, md = k1_inputs[0]
+    _, valid = nms_kernel.batched_greedy_nms(boxes, scores, iou, md)
+    bound, by = nms_bound(boxes, scores, valid, md)
+    k1 = dict(shape=list(scores.shape), positive=int((scores > 0).sum()),
+              ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms(boxes, scores, iou, md), 30),
+              device_ms=graph_ms(lambda: nms_kernel.batched_greedy_nms(boxes, scores, iou, md),
+                                 30),
+              plain_ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms_plain(
+                  boxes, scores, iou, md), 3),
+              bound_ms=bound, bound_by=by)
+    del boxes, scores, valid, k1_inputs
+
+    n_micro = TRAIN_EPOCHS * 3
+    losses = [float(v) for _, v in steps]
+    if len(steps) != n_micro or not all(np.isfinite(losses)):
+        fail(f"training ran {len(steps)} micro-steps (want {n_micro}), losses {losses}")
+    want_emit = [(i + 1) % TRAIN_ACCUMULATE == 0 for i in range(n_micro)]
+    if [c for c, _ in emitted] != want_emit or any(c != m for c, m in emitted):
+        fail(f"parameters changed at the wrong micro-steps: {emitted} (want {want_emit})")
+    last = root / "runs_train" / "exp" / "weights" / "last.pt"
+    state_last, meta = load_torch_checkpoint(last)
+    if meta["ema_updates"] != n_micro or meta["step"] != n_micro or \
+            meta["optimizer"]["gradient_step"] != n_micro // TRAIN_ACCUMULATE:
+        fail(f"EMA counter {meta['ema_updates']}, step {meta['step']}, optimizer steps "
+             f"{meta['optimizer']['gradient_step']} after {n_micro} micro-steps")
+    with open(root / "runs_train" / "exp" / "results.csv") as f:
+        rows = [r.strip().split(",") for r in f.readlines()[1:]]
+    if len(rows) != TRAIN_EPOCHS or not all(np.isfinite([float(v) for v in r]).all()
+                                            for r in rows):
+        fail(f"results.csv rows: {rows}")
+    # epoch walls: from an epoch's first micro-step to its validation's start and end
+    epoch_s, images_s = [], []
+    for e in range(TRAIN_EPOCHS):
+        first = steps[3 * e][0]
+        epoch_s.append({"train": vals[e][0] - first, "with_validation": vals[e][1] - first})
+        images_s.append(3 * TRAIN_BATCH / (vals[e][0] - first))
+
+    # last.pt serves through the facade
+    det = SkyEyeDetector(weights=str(last), img_size=TRAIN_IMG, device="cuda")
+    served = det(list(itertools.islice(validation_frames(seed=20), 2)))
+    check_detections(served, (1080, 1920), det.config.nc)
+    del det
+    # last.pt holds the weights its epoch was validated with (the EMA's):
+    # validate() on the file (BN folded) gives that epoch's row of results.csv
+    (mp, mr, map50, map_, *_), _, _ = port_validate.validate(
+        data, weights=str(last), batch_size=TRAIN_BATCH, img_size=TRAIN_IMG,
+        project=str(root / "runs_val_last"), plots=False, device="cuda")
+    last_val = {"validate": [mp, mr, map50, map_], "results_csv": [float(v) for v in rows[-1][4:8]]}
+    if not np.allclose(last_val["validate"], last_val["results_csv"], rtol=1e-3, atol=0):
+        fail(f"last.pt validates to {last_val['validate']}, its epoch's row says "
+             f"{last_val['results_csv']}")
+
+    # -- the step split, on the run's first batch with its first draws
+    batch, ds = first_batch(torch, data, TRAIN_IMG)
+    model = create_detector("skyeye_s", num_classes=len(DRONE_NAMES), device="cuda")
+    model.load_state_dict(load_torch_checkpoint(weights)[0], strict=True)
+    loss_fn = ComputeLoss(model.config.anchors, model.config.nc)
+    opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=TRAIN_BATCH)
+    marks = []
+    step = make_train_step(model, loss_fn, opt, device_augment=lambda im, t, m, g:
+                           augment_batch_device(im, t, m, g, hyp=DEFAULT_HYP),
+                           on_stage=lambda name: marks.append((name, cuda_event(torch))))
+    state = create_train_state(model, opt)
+
+    def micro_step(i):
+        marks.clear()
+        marks.append(("start", cuda_event(torch)))
+        b = dict(batch, aug_generator=step_generator(0, i, "cuda"), n_valid=TRAIN_BATCH,
+                 opt_hyperparams={"lr": 0.0, "bias_lr": 0.0, "momentum": 0.937})
+        return step(state, b)[1]
+
+    first_loss = float(micro_step(0)["loss"])  # the run's first micro-step, re-run
+    if abs(first_loss - losses[0]) > 1e-6 * abs(losses[0]):
+        fail(f"the first micro-step re-run gives loss {first_loss}, the run gave {losses[0]}")
+    split = []
+    for i in range(1, 6):
+        micro_step(i)
+        torch.cuda.synchronize()
+        split.append({n: marks[j - 1][1].elapsed_time(marks[j][1])
+                      for j, (n, _) in enumerate(marks) if j})
+    split_ms = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    step_ms = sum(split_ms.values())
+    loader_ms = float(np.median([host_ms(lambda: ds[i], 1) for i in range(0, len(ds), 6)]))
+    del state, step, opt
+
+    # -- the first micro-step in float32 against float64 on the card (same
+    # augmented batch, train mode), gradient by gradient
+    images = augment_batch_device(batch["images"].float() / 255.0, batch["targets"],
+                                  batch["mask"], step_generator(0, 0, "cuda"), hyp=DEFAULT_HYP)
+    aug_images, aug_t, aug_m = images
+    model.load_state_dict(load_torch_checkpoint(weights)[0], strict=True)
+    l32, aux32, g32 = loss_and_grads(model, loss_fn, aug_images, aug_t, aug_m)
+    if abs(l32 - first_loss) > 1e-6 * abs(first_loss):
+        fail(f"the first micro-step's loss {l32} differs from the step's {first_loss}")
+    m64 = SkyEyeDetectorModule(model.config, dtype=torch.float64)
+    m64.load_state_dict(load_torch_checkpoint(weights)[0], strict=True)
+    m64 = m64.double().cuda()
+    l64, aux64, g64 = loss_and_grads(m64, loss_fn, aug_images.double(), aug_t, aug_m)
+    del m64
+    errs = grad_errors(g32, g64)
+    worst = max(errs, key=errs.get)
+    if abs(l32 - l64) > 1e-5 * abs(l64) or errs[worst] > GRAD_VS_FLOAT64_REL:
+        fail(f"float32 against float64: loss {l32} vs {l64}; worst gradients "
+             f"{error_summary(errs)['worst']} of max|g|")
+    del g32, g64
+
+    # -- one bf16 micro-step's loss against float32's
+    mbf = create_detector("skyeye_s", num_classes=len(DRONE_NAMES), dtype=torch.bfloat16,
+                          device="cuda")
+    mbf.load_state_dict(load_torch_checkpoint(weights)[0], strict=True)
+    lbf, _, _ = loss_and_grads(mbf, loss_fn, aug_images, aug_t, aug_m)
+    del mbf
+    if not abs(lbf - l32) <= BF16_REL * abs(l32) + BF16_ABS:
+        fail(f"bf16 micro-step loss {lbf} against float32's {l32}")
+
+    # -- the dense form of the loss (cli.train's SKYEYE_DENSE_LOSS) on the same
+    # micro-step: finite, equal to the gather form where no two assignments
+    # share a cell (it averages colliding targets where the gather form takes
+    # each); each form's loss forward and backward timed on the step's logits
+    dense_fn = ComputeLoss(model.config.anchors, model.config.nc, dense=True)
+    model.load_state_dict(load_torch_checkpoint(weights)[0], strict=True)
+    l_dense, aux_dense, g_dense = loss_and_grads(model, dense_fn, aug_images, aug_t,
+                                                 aug_m)
+    collisions = assignment_collisions(torch, model, aug_images, aug_t, aug_m)
+    if not (np.isfinite(l_dense) and all(bool(torch.isfinite(g).all())
+                                         for g in g_dense.values())):
+        fail(f"the dense loss gave {l_dense} or non-finite gradients")
+    if sum(collisions) == 0 and abs(l_dense - l32) > 1e-5 * abs(l32):
+        fail(f"no colliding assignments, yet the dense loss {l_dense} differs from {l32}")
+    del g_dense
+    loss_ms = loss_forward_backward_ms(torch, model, {"gather": loss_fn, "dense": dense_fn},
+                                       aug_images, aug_t, aug_m)
+
+    # -- 10 steps on one fixed batch, no augmentation, a fixed lr: the loss falls
+    model.load_state_dict(load_torch_checkpoint(weights)[0], strict=True)
+    opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=64)  # accumulate 1
+    step = make_train_step(model, loss_fn, opt)
+    state = create_train_state(model, opt)
+    fixed = []
+    for i in range(10):
+        _, m = step(state, dict(batch, opt_hyperparams={"lr": 0.01, "bias_lr": 0.01,
+                                                        "momentum": 0.937}))
+        fixed.append(float(m["loss"]))
+    if not (np.isfinite(fixed).all() and fixed[-1] < fixed[0]):
+        fail(f"10 steps on one batch did not lower the loss: {fixed}")
+    del state, step, opt, model, batch, images, aug_images
+
+    emit("train", model="skyeye_s", nc=len(DRONE_NAMES), img_size=TRAIN_IMG,
+         batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS, accumulate=TRAIN_ACCUMULATE,
+         frames=len(ds), dtype="float32", tf32=False, device_aug=True, hyp="DEFAULT_HYP",
+         micro_step_losses=losses, params_changed=[c for c, _ in emitted],
+         ema_updates=meta["ema_updates"], optimizer_steps=meta["optimizer"]["gradient_step"],
+         results_csv=rows, train_s=train_s, epoch_s=epoch_s, images_per_s=images_s,
+         step_ms=step_ms, step_split_ms=split_ms,
+         host_ms_per_frame=loader_ms, device_ms_per_frame=step_ms / TRAIN_BATCH,
+         peak_memory_gib=peak_gib, launches=launches,
+         k1_inputs={"count": len(kept), "shapes": sorted({tuple(k["shape"]) for k in kept}),
+                    "kept": [min(min(k["kept"]) for k in kept),
+                             max(max(k["kept"]) for k in kept)]},
+         k1_timed=k1,
+         first_step_loss={"float32": l32, "float64": l64, "aux32": aux32, "aux64": aux64},
+         grad_vs_float64=error_summary(errs),
+         bf16_loss=lbf, dense_loss={"loss": l_dense, "aux": aux_dense,
+                                    "colliding_assignments": collisions,
+                                    "loss_fwd_bwd_ms": loss_ms},
+         last_pt_validation=last_val, fixed_batch_losses=fixed, card=gpu_line,
+         phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="train",
+                 launches=launches["batched_greedy_nms"])]
+
+
+def cuda_event(torch):
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def phase_train_transformer(torch, gpu_line, workdir):
+    """skyeye_l_transformer at full width and depth, 640 px, batch 16: 3
+    micro-steps without augmentation, K4 in every forward."""
+    import torch.nn.functional as F
+    from pathlib import Path
+
+    from skyeye_tpu_torch.config import DEFAULT_HYP
+    from skyeye_tpu_torch.losses import ComputeLoss
+    from skyeye_tpu_torch.models import attention as port_attention
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.ops import attention_kernel
+    from skyeye_tpu_torch.tools.train_grad_noise import error_summary, grad_errors, loss_and_grads
+    from skyeye_tpu_torch.train import RuntimeOptimizer, create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    data = {"path": str(Path(workdir)), "train": "images/val"}
+    batch, _ = first_batch(torch, data, TRAIN_IMG)
+    model = create_detector("skyeye_l_transformer", num_classes=len(DRONE_NAMES),
+                            device="cuda", seed=0)
+    loss_fn = ComputeLoss(model.config.anchors, model.config.nc)
+    x = batch["images"].float() / 255.0
+
+    # -- the first micro-step's loss and gradients with K4, and with
+    # attention_reference put in (the same dropout masks: one generator seed)
+    real_flash, k4_inputs = port_attention.flash_attention, []
+
+    def record_flash(q, k, v):
+        k4_inputs[:] = [(q.detach(), k.detach(), v.detach())]
+        return real_flash(q, k, v)
+
+    attention_kernel.reset_launch_counts()
+    with mock.patch.object(port_attention, "flash_attention", record_flash):
+        l_k4, _, g_k4 = loss_and_grads(model, loss_fn, x, batch["targets"],
+                                       batch["mask"])
+    if attention_kernel.LAUNCHES["flash_attention"] != 1:
+        fail(f"the transformer's train forward launched K4 "
+             f"{attention_kernel.LAUNCHES['flash_attention']} times, not once")
+    with mock.patch.object(port_attention, "flash_attention",
+                           attention_kernel.attention_reference):
+        l_ref, _, g_ref = loss_and_grads(model, loss_fn, x, batch["targets"],
+                                         batch["mask"])
+    errs = grad_errors(g_k4, g_ref)
+    worst = max(errs, key=errs.get)
+    if abs(l_k4 - l_ref) > 1e-5 * abs(l_ref) or errs[worst] > K4_TRAIN_GRAD_REL:
+        fail(f"K4 against attention_reference in a train step: loss {l_k4} vs {l_ref}; "
+             f"worst gradients {error_summary(errs)['worst']} of max|g|")
+    del g_k4, g_ref
+
+    # -- 3 micro-steps through the train step (accumulate 4: the parameters stay)
+    opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=TRAIN_BATCH)
+    step = make_train_step(model, loss_fn, opt)
+    state = create_train_state(model, opt)
+    attention_kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(3):
+        start = cuda_event(torch)
+        _, m = step(state, dict(batch, opt_hyperparams={"lr": 0.0, "bias_lr": 0.0,
+                                                        "momentum": 0.937}))
+        end = cuda_event(torch)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    launches = dict(attention_kernel.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches["flash_attention"] != 3 or not np.isfinite(losses).all():
+        fail(f"3 transformer micro-steps: K4 launched {launches['flash_attention']} times, "
+             f"losses {losses}")
+    del state, step, opt
+
+    # -- K4 timed on the input the step gave it
+    q, k, v = (t.contiguous() for t in k4_inputs[0])
+    b, n, hd = q.shape
+    out = attention_kernel.flash_attention(q, k, v)
+    ref = attention_kernel.attention_reference(q, k, v)
+    ops = TF32_PRODUCTS_PER_F32 * 4.0 * b * n * n * hd
+    t_bytes, t_ops = 4 * q.numel() * 4 / PEAK_BYTES_S * 1e3, ops / PEAK_TF32_OPS_S * 1e3
+    k4 = dict(shape=[b, n, hd], max_abs_err=float((out - ref).abs().max()),
+              ms=cuda_ms(lambda: attention_kernel.flash_attention(q, k, v), 20),
+              plain_ms=cuda_ms(lambda: attention_kernel.flash_attention_plain(q, k, v), 5),
+              bound_ms=max(t_bytes, t_ops),
+              bound_by="bytes" if t_bytes >= t_ops else "operations",
+              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20))
+    del q, k, v, out, ref, k4_inputs[:], model, batch, x
+    emit("train_transformer", model="skyeye_l_transformer", nc=len(DRONE_NAMES),
+         img_size=TRAIN_IMG, batch=TRAIN_BATCH, dtype="float32", tf32=False,
+         device_aug=False, micro_steps=3, losses=losses, step_ms=times,
+         peak_memory_gib=peak_gib, launches=launches,
+         k4_vs_reference={"loss": [l_k4, l_ref], **error_summary(errs)},
+         k4=k4, card=gpu_line, phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return [dict(name="flash_attention", path="train_transformer",
+                 launches=launches["flash_attention"])]
+
+
 def merge_by_kernel(entries):
     """One entry per kernel: the first one's numbers, ``launches`` summed over
     every path's entry and ``launches_by_path`` listing them."""
@@ -1509,7 +1951,10 @@ def main() -> int:
     summary += phase_serve_enhanced(torch, gpu_line)
     summary += phase_serve_bf16(torch, gpu_line)
     summary += phase_serve_tiled(torch, gpu_line)
-    summary += phase_validate(torch, gpu_line)
+    with tempfile.TemporaryDirectory(prefix="skyeye_smoke_") as workdir:
+        summary += phase_validate(torch, gpu_line, workdir)
+        summary += phase_train(torch, gpu_line, workdir)
+        summary += phase_train_transformer(torch, gpu_line, workdir)
     summary = merge_by_kernel(summary)
     for s in summary:
         kid, replaces, source = KERNELS[s["name"]]

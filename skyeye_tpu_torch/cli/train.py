@@ -1,0 +1,332 @@
+"""Training: the epoch loop with per-epoch validation on EMA weights,
+checkpoints, resume and early stopping.
+
+Port of ``skyeye_tpu/cli/train.py`` as JAX runs it with ``--device-aug``: the
+loader only letterboxes, and mosaic, affine, HSV and flips run on the card
+inside the step (``data/device_aug.py``); ``ComputeLoss`` with YOLOv5
+targets; SGD-nesterov or Adam in two groups (bias, other) with a decay mask,
+lr, bias lr and momentum set each optimizer step from ``host_schedule``;
+gradients accumulated to the nominal batch 64; EMA; after each epoch,
+validation on the EMA weights (K1 in its NMS) with the validation loss;
+``results.csv`` with JAX's header, ``last.pt``/``best.pt`` (their weights
+the EMA's that were validated, so the facade and ``validate`` serve them as
+they are), resume and early stopping.
+
+The step runs on the card: batches come through the pinned prefetch ring
+(``data/prefetch.py``), the uint8 frames are normalised there, and nothing
+waits for the host until an epoch ends.
+
+Not ported, each raising NotImplementedError with its ROADMAP item:
+``device_aug=False`` (host augmentation through cv2), ``evolve``, ``remat``,
+``fsdp`` and ``spatial_shards > 1`` (multi-device). ``packed_stem`` is a TPU
+lane remap of the stem that JAX calls numerically equivalent: the port trains
+the canonical stem for either value (ROADMAP Queue 1 item 9). The figures of
+``plot_results`` are not drawn (a warning; the visualization slice).
+
+Usage: python -m skyeye_tpu_torch.cli.train --cfg skyeye_s --data drone.yaml \\
+           --epochs 100 --batch-size 16 --device-aug
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import csv
+import dataclasses
+import os
+import time
+from functools import partial
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import dump_flat_yaml, load_hyp, load_model_config
+from ..losses import ComputeLoss
+from ..train import (
+    EarlyStopping, RuntimeOptimizer, create_train_state, ema_weights, fitness,
+    host_schedule, make_train_step,
+)
+from ..train.optimizer import accumulation_steps
+from ..utils.checkpoint import (
+    load_torch_checkpoint, merge_matching, restore_train_state, save_train_checkpoint,
+)
+from ..utils.general import (
+    LOGGER, check_dataset, check_img_size, get_latest_run, increment_path, init_seeds,
+    labels_to_class_weights, print_args, resolve_device,
+)
+
+RESULTS_HEADER = [
+    "epoch", "train/box_loss", "train/obj_loss", "train/cls_loss",
+    "metrics/precision", "metrics/recall", "metrics/mAP_0.5", "metrics/mAP_0.5:0.95",
+    "val/box_loss", "val/obj_loss", "val/cls_loss", "lr",
+]
+
+
+def _not_ported(opt: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{opt} is not ported (ROADMAP.md, Queue 1 {item})")
+
+
+def train(
+    cfg="skyeye_s",
+    data: str = "",
+    hyp: Optional[str] = None,
+    epochs: int = 100,
+    batch_size: int = 16,
+    img_size: int = 640,
+    weights: str = "",
+    resume: bool = False,
+    adam: bool = False,
+    linear_lr: bool = False,
+    max_labels: int = 300,
+    workers: int = 4,
+    project: str = "runs/train",
+    name: str = "exp",
+    exist_ok: bool = False,
+    patience: int = 30,
+    seed: int = 0,
+    save_period: int = -1,
+    noval: bool = False,
+    cache_images: bool = False,
+    half: bool = False,
+    spatial_shards: int = 1,
+    device_aug: bool = False,
+    accumulate: int = 0,
+    autoanchor: bool = False,
+    evolve: int = 0,
+    debug_nans: bool = False,
+    ref_exact_cross_attn: Optional[bool] = None,
+    remat: str = "",
+    fsdp: bool = False,
+    packed_stem: bool = True,
+    device="cuda",
+):
+    """JAX's ``train`` signature and defaults, plus ``device`` (CUDA unless the
+    caller asks for the CPU). Returns (final_results, save_dir): the last
+    epoch's (P, R, mAP@.5, mAP@.5:.95, val box, obj, cls).
+
+    ``packed_stem`` is accepted and changes nothing: JAX's packed stem is a lane
+    layout for the TPU, numerically the canonical stem with the same weights,
+    and the port trains the canonical stem (ROADMAP Queue 1 item 9)."""
+    if not device_aug:
+        raise _not_ported("host augmentation (device_aug=False: mosaic, perspective and HSV "
+                          "through cv2); pass device_aug=True (--device-aug)", "item 10")
+    if evolve:
+        raise _not_ported("hyperparameter evolution (evolve)", "item 11")
+    if remat:
+        raise _not_ported("rematerialisation (remat, as torch.utils.checkpoint)", "item 12")
+    if fsdp or spatial_shards > 1:
+        raise _not_ported("multi-device training (fsdp, spatial_shards > 1)", "item 8")
+    from ..data.dataset import create_dataloader
+    from ..data.device_aug import augment_batch_device
+    from ..data.prefetch import device_prefetch
+    from ..models.detector import create_detector
+    from .validate import validate
+
+    # -- run dir + config dump
+    save_dir = increment_path(Path(project) / name, exist_ok=exist_ok or resume, mkdir=True)
+    wdir = save_dir / "weights"
+    wdir.mkdir(parents=True, exist_ok=True)
+    hyp_dict = load_hyp(hyp)
+    (save_dir / "hyp.yaml").write_text(dump_flat_yaml(hyp_dict))
+    opt_dump = {k: v for k, v in locals().items() if isinstance(v, (int, float, str, bool))}
+    (save_dir / "opt.yaml").write_text(dump_flat_yaml(opt_dump))
+    print_args(opt_dump)
+    if debug_nans:  # stop at the first NaN with a traceback of the forward that made it
+        torch.autograd.set_detect_anomaly(True)
+
+    init_seeds(seed)
+    dev = resolve_device(device)
+    data_cfg = check_dataset(data)
+    nc = data_cfg.nc
+
+    # -- model (packed_stem: the canonical stem either way, see the module docstring)
+    dtype = torch.bfloat16 if half else torch.float32
+    config = load_model_config(cfg)
+    if ref_exact_cross_attn is not None:
+        config = dataclasses.replace(config, ref_exact_cross_attn=ref_exact_cross_attn)
+    model = create_detector(config, num_classes=nc, dtype=dtype, device=dev, seed=seed)
+    config = model.config
+    stride = int(max(config.strides))
+    img_size = check_img_size(img_size, stride)
+
+    if weights:
+        if not str(weights).endswith((".pt", ".pth")):
+            raise ValueError(f"{weights}: the port reads .pt weights (an orbax directory "
+                             "needs orbax; export it with skyeye_tpu.cli.export)")
+        state_in, _ = load_torch_checkpoint(weights)  # a port checkpoint: its EMA weights
+        merged, n_l, n_t = merge_matching(model.state_dict(), state_in)
+        model.load_state_dict(merged, strict=True)
+        LOGGER.info("transferred %d/%d tensors from %s", n_l, n_t, weights)
+
+    # -- data: the loader only letterboxes; augmentation runs in the step
+    train_loader, train_ds = create_dataloader(
+        data_cfg.train, img_size=img_size, batch_size=batch_size, stride=stride,
+        augment=False, hyp=hyp_dict, workers=workers, max_labels=max_labels,
+        cache_images=cache_images, seed=seed, shuffle=True,
+    )
+    steps_per_epoch = len(train_loader)
+    labels_to_class_weights(train_ds.labels, nc)
+
+    if autoanchor:
+        from ..utils.autoanchor import check_anchors, fit_anchors_for_dataset
+
+        whs = [l[:, 3:5] * np.array(s_) * (img_size / max(s_))
+               for l, s_ in zip(train_ds.labels, train_ds.shapes) if len(l)]
+        if whs:
+            bpr = check_anchors(np.concatenate(whs, 0), config.anchors, config.strides,
+                                img_size)
+            if bpr < 0.98:
+                LOGGER.info("refitting anchors (best-possible recall %.3f < 0.98)", bpr)
+                config = dataclasses.replace(
+                    config, anchors=fit_anchors_for_dataset(train_ds, img_size, config.strides))
+                model = create_detector(config, dtype=dtype, device=dev, seed=seed)
+    LOGGER.info("train: %d images, %d steps/epoch", len(train_ds), steps_per_epoch)
+
+    # -- optimizer + schedules, in optimizer steps
+    accumulate = accumulate or accumulation_steps(batch_size)
+    opt_steps_per_epoch = max(steps_per_epoch // accumulate, 1)
+    warmup_steps = max(int(round(hyp_dict.get("warmup_epochs", 3.0) * steps_per_epoch)), 100)
+    warmup_opt_steps = max(warmup_steps // accumulate, 1)
+    lr_sched = host_schedule(hyp_dict, epochs, opt_steps_per_epoch, cos_lr=not linear_lr,
+                             warmup_steps=warmup_opt_steps)
+    tx = RuntimeOptimizer(model, hyp_dict, adam=adam, batch_size=batch_size,
+                          accumulate=accumulate)
+    # SKYEYE_DENSE_LOSS=1: the dense form of the loss, as in JAX
+    loss_fn = ComputeLoss(config.anchors, nc, hyp=hyp_dict,
+                          dense=bool(os.environ.get("SKYEYE_DENSE_LOSS")))
+    state = create_train_state(model, tx)
+    start_epoch, best_fit = 0, 0.0
+
+    if resume:
+        last = get_latest_run(project) or str(wdir / "last.pt")
+        if Path(last).exists():
+            ckpt = torch.load(last, map_location="cpu", weights_only=False)
+            restore_train_state(state, ckpt)
+            start_epoch = int(ckpt.get("epoch", -1)) + 1
+            best_fit = float(ckpt.get("best_fitness", 0.0))
+            # the loader's shuffles of the epochs already run, so the resumed epochs
+            # see the batches an uninterrupted run sees (JAX's loader starts over)
+            for _ in range(start_epoch):
+                train_loader.rng.shuffle(np.arange(len(train_ds)))
+            LOGGER.info("resumed from %s at epoch %d", last, start_epoch)
+
+    aug_fn = partial(augment_batch_device, hyp=hyp_dict,
+                     use_mosaic=hyp_dict.get("mosaic", 1.0) > 0)
+    step_fn = make_train_step(model, loss_fn, tx, device_augment=aug_fn)
+    eval_model = copy.deepcopy(model).eval()  # validation loads the EMA weights into it
+    stopper = EarlyStopping(patience=patience)
+    results_file = save_dir / "results.csv"
+    if not results_file.exists():
+        with open(results_file, "w", newline="") as f:
+            csv.writer(f).writerow(RESULTS_HEADER)
+
+    LOGGER.info("starting training for %d epochs (accumulate=%d, device=%s)",
+                epochs, accumulate, dev)
+    final_results = (0, 0, 0, 0, 0, 0, 0)
+    py_step = int(state.step)
+    for epoch in range(start_epoch, epochs):
+        t0 = time.time()
+        losses = []
+        for batch in device_prefetch(train_loader, size=2, device=dev,
+                                     keys=("images", "targets", "mask")):
+            batch["aug_generator"] = torch.Generator(device=dev).manual_seed(
+                seed * 1_000_003 + py_step)
+            batch["opt_hyperparams"] = lr_sched(py_step // accumulate)
+            batch["n_valid"] = int(batch.get("n_valid", batch["images"].shape[0]))
+            state, metrics = step_fn(state, batch)
+            losses.append(torch.stack([metrics["box"], metrics["obj"], metrics["cls"]]))
+            py_step += 1
+        mloss = (torch.stack(losses).mean(0).cpu().numpy().astype(np.float64)
+                 if losses else np.zeros(3))
+        lr_now = lr_sched(py_step // accumulate)["lr"]
+        LOGGER.info("epoch %d/%d: box %.4f obj %.4f cls %.4f (%.1fs, lr %.5f)",
+                    epoch + 1, epochs, *mloss, time.time() - t0, lr_now)
+
+        results = (0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+        if not noval and data_cfg.val:
+            results, _, _ = validate(
+                data_cfg, batch_size=batch_size, img_size=img_size,
+                model=(eval_model, ema_weights(state.ema, state.model)), plots=False,
+                save_dir=save_dir, compute_loss=loss_fn, device=dev,
+            )
+        fit = fitness({"map50": results[2], "map": results[3]})
+        best_fit = max(best_fit, fit)
+        final_results = results
+        with open(results_file, "a", newline="") as f:
+            csv.writer(f).writerow([epoch, *mloss, *results[:4], *results[4:7], lr_now])
+
+        # last every epoch (every save_period with noval, and the final one); best
+        # by fitness
+        ckpt_every = save_period if (noval and save_period > 0) else 1
+        if epoch % ckpt_every == 0 or epoch == epochs - 1:
+            save_train_checkpoint(wdir / "last.pt", state, epoch, best_fit, config)
+            if fit >= best_fit and not noval:
+                save_train_checkpoint(wdir / "best.pt", state, epoch, best_fit, config)
+            if save_period > 0 and not noval and epoch % save_period == 0:
+                save_train_checkpoint(wdir / f"epoch{epoch}.pt", state, epoch, best_fit, config)
+
+        if stopper(epoch, fit):
+            LOGGER.info("early stopping at epoch %d (no improvement for %d epochs)",
+                        epoch + 1, patience)
+            break
+
+    LOGGER.warning("results.png not drawn from %s: plot_results belongs to the "
+                   "visualization slice (ROADMAP.md, Queue 1 item 7)", results_file)
+    LOGGER.info("training complete; best fitness %.4f; weights in %s", best_fit, wdir)
+    return final_results, save_dir
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser(description="SkyEye training on PyTorch/CUDA")
+    p.add_argument("--cfg", "--config", type=str, default="skyeye_s")
+    p.add_argument("--data", type=str, required=True)
+    p.add_argument("--hyp", type=str, default=None)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--img-size", "--imgsz", type=int, default=640)
+    p.add_argument("--weights", type=str, default="", help="initial weights (.pt)")
+    p.add_argument("--resume", nargs="?", const=True, default=False)
+    p.add_argument("--adam", action="store_true")
+    p.add_argument("--linear-lr", action="store_true")
+    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--project", default="runs/train")
+    p.add_argument("--name", default="exp")
+    p.add_argument("--exist-ok", action="store_true")
+    p.add_argument("--patience", type=int, default=30)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--save-period", type=int, default=-1)
+    p.add_argument("--noval", action="store_true")
+    p.add_argument("--cache-images", action="store_true")
+    p.add_argument("--half", action="store_true", help="bfloat16 activations")
+    p.add_argument("--spatial-shards", type=int, default=1, help="not ported (multi-device)")
+    p.add_argument("--fsdp", action="store_true", help="not ported (multi-device)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="stop at the first NaN (torch.autograd.set_detect_anomaly)")
+    p.add_argument("--evolve", type=int, nargs="?", const=10, default=0, help="not ported")
+    p.add_argument("--autoanchor", action="store_true",
+                   help="check and refit anchors to the dataset (kmeans)")
+    p.add_argument("--accumulate", type=int, default=0,
+                   help="gradient accumulation steps (0 = auto to nominal batch 64)")
+    p.add_argument("--device-aug", action="store_true",
+                   help="mosaic/HSV/affine augmentation on the card inside the step "
+                        "(the only augmentation the port has)")
+    p.add_argument("--max-labels", type=int, default=300)
+    p.add_argument("--no-packed-stem", dest="packed_stem", action="store_false",
+                   help="accepted; the port trains the canonical stem either way")
+    p.add_argument("--remat", nargs="?", const="stage", default="", choices=("block", "stage"),
+                   help="not ported")
+    p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    import logging
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    opt = parse_opt(argv)
+    return train(**vars(opt))
+
+
+if __name__ == "__main__":
+    main()

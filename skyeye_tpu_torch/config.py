@@ -1,13 +1,16 @@
 """Model and dataset configuration: the s/m/l family, anchors and strides;
-the data YAML's schema.
+the data YAML's schema; the training hyperparameters.
 
-Port of ``skyeye_tpu/config.py`` (``ModelConfig`` and ``DataConfig``). The five
+Port of ``skyeye_tpu/config.py`` (``ModelConfig``, ``DataConfig``,
+``DEFAULT_HYP`` and ``load_hyp``). The five
 model configurations the repository ships under ``configs/models/`` are held
 here as plain Python literals, so the serving path needs no YAML parser;
 ``yaml`` is imported only inside ``ModelConfig.from_yaml``, for a caller who
 passes a path; ``DataConfig.from_yaml`` reads the flat data schema itself, as
-the card's machine has no PyYAML. Anchors are in grid units per
-level (strides 8/16/32).
+the card's machine has no PyYAML; so does ``load_hyp`` with a hyp file
+(flat ``key: number`` lines), and ``dump_flat_yaml`` writes the flat files a
+training run leaves (``hyp.yaml``, ``opt.yaml``) in a form PyYAML reads to the
+same values. Anchors are in grid units per level (strides 8/16/32).
 """
 from __future__ import annotations
 
@@ -253,3 +256,89 @@ class DataConfig:
     def from_yaml(cls, path) -> "DataConfig":
         raw = _read_flat_yaml(Path(path).read_text(errors="ignore"))
         return cls.from_dict(raw, root=Path(path).parent)
+
+
+# Training and augmentation hyperparameters, JAX's DEFAULT_HYP value for value.
+DEFAULT_HYP: Dict[str, float] = {
+    "lr0": 0.01,            # initial learning rate
+    "lrf": 0.01,            # final lr fraction (cosine/linear target)
+    "momentum": 0.937,
+    "weight_decay": 0.0005,
+    "warmup_epochs": 3.0,
+    "warmup_momentum": 0.8,
+    "warmup_bias_lr": 0.1,
+    "box": 0.05,            # box loss gain
+    "cls": 0.5,             # cls loss gain
+    "cls_pw": 1.0,
+    "obj": 1.0,             # obj loss gain
+    "obj_pw": 1.0,
+    "fl_gamma": 1.5,        # focal loss gamma
+    "label_smoothing": 0.0,
+    "iou_t": 0.2,
+    "anchor_t": 4.0,        # anchor ratio threshold
+    "hsv_h": 0.015,
+    "hsv_s": 0.7,
+    "hsv_v": 0.4,
+    "degrees": 0.0,
+    "translate": 0.1,
+    "scale": 0.5,
+    "shear": 0.0,
+    "perspective": 0.0,
+    "flipud": 0.0,
+    "fliplr": 0.5,
+    "mosaic": 1.0,
+    "mixup": 0.0,
+    "copy_paste": 0.0,
+}
+
+# PyYAML's float: a decimal point is required (``1e-5`` is a string to it).
+_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*\.[0-9_]*|\.[0-9_]+)(?:[eE][-+][0-9]+)?")
+
+
+def _number(text: str, line: str):
+    """An int or float as PyYAML reads it; anything else raises."""
+    if re.fullmatch(r"[-+]?(?:0|[1-9][0-9]*)", text):
+        return int(text)
+    if _YAML_FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    raise ValueError(f"hyp line {line!r}: the value is not a number as YAML reads one")
+
+
+def load_hyp(path=None) -> Dict[str, float]:
+    """DEFAULT_HYP, updated from a flat ``key: number`` hyp file when one is given."""
+    hyp = dict(DEFAULT_HYP)
+    if path:
+        for line in Path(path).read_text(errors="ignore").splitlines():
+            line = "" if line.lstrip().startswith("#") else line.split(" #", 1)[0].rstrip()
+            if not line.strip() or line.strip() in ("---", "{}"):
+                continue
+            name, sep, value = line.partition(":")
+            if not sep or line[0] == " " or not value.strip():
+                raise ValueError(f"hyp line not understood: {line!r} (flat key: number only)")
+            hyp[name.strip()] = _number(value.strip(), line)
+    return hyp
+
+
+def _flat_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if abs(v) == float("inf"):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "e" in text and "." not in text.split("e")[0]:  # 1e-05 -> 1.0e-05, as PyYAML
+            mant, exp = text.split("e")
+            text = f"{mant}.0e{exp}"
+        return text
+    return "'" + str(v).replace("'", "''") + "'"
+
+
+def dump_flat_yaml(values: Dict[str, Any]) -> str:
+    """``key: value`` lines (bool, int, float or string values) that PyYAML and
+    ``load_hyp`` read back to the same numbers; keys in sorted order, as
+    ``yaml.safe_dump`` writes them."""
+    return "".join(f"{k}: {_flat_value(values[k])}\n" for k in sorted(values))

@@ -1,7 +1,7 @@
 """YOLO-format dataset with a label cache and rect batches, and a threaded
-batch loader, for validation.
+batch loader, for validation and for training with augmentation on the device.
 
-Port of ``skyeye_tpu/data/dataset.py``, the paths without augmentation:
+Port of ``skyeye_tpu/data/dataset.py``, the paths without host augmentation:
 
   * image discovery from a dir, a glob or a list file (``find_images``) and the
     images/ -> labels/ mapping (``img2label_paths``);
@@ -17,12 +17,14 @@ Port of ``skyeye_tpu/data/dataset.py``, the paths without augmentation:
   * ``BatchLoader``: fixed-shape batch dicts {images (B, H, W, 3) uint8 RGB,
     targets (B, M, 6), mask (B, M), n_valid, indices}, assembled by a thread
     pool ahead of the consumer; a short last batch is padded by repeating its
-    images, as JAX pads it (only ``n_valid`` rows count).
+    images, as JAX pads it (only ``n_valid`` rows count); with ``shuffle`` the
+    order is JAX's (``np.random.default_rng(seed)`` shuffles once an epoch);
+    ``InfiniteBatchLoader`` runs epoch after epoch.
 
-Augmentation (mosaic, mixup, affine, HSV, flips) belongs to training, Slice C
-of ROADMAP.md: ``augment=True`` raises. JAX's native C++ decode path for square
-evaluation is not ported (ROADMAP.md); this is JAX's Python path, which also
-serves rect evaluation.
+Training augments on the device (``data/device_aug.py``, ``--device-aug``), so
+its loader only letterboxes. Host augmentation (mosaic, perspective and HSV
+through cv2) is not ported: ``augment=True`` raises. JAX's native C++ decode
+path for square batches is not ported (ROADMAP.md); this is JAX's Python path.
 """
 from __future__ import annotations
 
@@ -46,8 +48,9 @@ from .imageio import image_size, imread, resize_area, resize_linear
 IMG_FORMATS = ("bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp")
 VID_FORMATS = ("asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv")
 CACHE_VERSION = "skyeye_tpu_torch-0.1"
-AUGMENT_NOT_PORTED = ("augmentation belongs to training, which the port does not have yet "
-                      "(ROADMAP.md, Queue 1 item 6: Slice C)")
+AUGMENT_NOT_PORTED = ("host augmentation (mosaic, perspective and HSV through cv2) is not "
+                      "ported (ROADMAP.md, Queue 1 item 10); train with augmentation on the "
+                      "device instead (cli.train's device_aug=True, --device-aug)")
 
 
 def img2label_paths(img_paths: Sequence[str]) -> List[str]:
@@ -463,3 +466,17 @@ def create_dataloader(
 def load_dataset(path, **kw) -> AerialDataset:
     """Dataset constructor (the reference's ``load_dataset``)."""
     return AerialDataset(path, **kw)
+
+
+class InfiniteBatchLoader(BatchLoader):
+    """A loader without epoch boundaries: batches without end, shuffled anew each
+    pass; ``take(n)`` bounds it."""
+
+    def __iter__(self):
+        while True:
+            yield from super().__iter__()
+
+    def take(self, n: int):
+        it = iter(self)
+        for _ in range(n):
+            yield next(it)

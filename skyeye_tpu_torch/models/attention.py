@@ -205,6 +205,28 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(wide).to(self.compute_dtype)
 
 
+class Dropout(nn.Module):
+    """Dropout as flax's: keep with probability 1 - p, kept values / (1 - p).
+    The mask is drawn from ``generator``, which the train step sets (one a
+    step, as JAX folds the step into its key); in train mode with p > 0 and
+    no generator it raises rather than draw from the global RNG."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a generator: "
+                               "train.trainer.set_dropout_generator sets one")
+        keep = 1.0 - self.p
+        kept = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class TransformerLayer(nn.Module):
     """Pre-norm MHSA + ReLU FFN (width 4 C) over (B, N, C) tokens; LayerNorm eps
     1e-6 and dropout 0.1 as in flax (dropout is the identity in eval)."""
@@ -216,7 +238,7 @@ class TransformerLayer(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6, compute_dtype=dtype)
         self.ff1 = Linear(dim, 4 * dim, compute_dtype=dtype)
         self.ff2 = Linear(4 * dim, dim, compute_dtype=dtype)
-        self.dropout = nn.Dropout(0.1)
+        self.dropout = Dropout(0.1)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         t = t + self.dropout(self.attn(self.norm1(t)))

@@ -6,9 +6,13 @@ a ``state_dict`` key one to one (``utils/checkpoint.py``).
 
 ``dtype`` is flax's: parameters and the ``state_dict`` stay float32 and the
 compute runs in ``dtype``. Convs and dense layers cast their input and weights
-to it (``Conv2d``, ``Linear``). ``nn.BatchNorm2d`` takes the conv's output in
+to it (``Conv2d``, ``Linear``). ``BatchNorm2d`` takes the conv's output in
 ``dtype`` beside its float32 statistics and parameters, normalises in float32
 and returns ``dtype``, as flax's ``_normalize`` does.
+
+Train mode is flax's too: ``BatchNorm2d`` keeps the biased batch variance in
+its running statistics, and SPP's pools become JAX's shift-max chain, whose
+gradient splits ties as ``jnp.maximum``'s does.
 """
 from __future__ import annotations
 
@@ -47,6 +51,28 @@ class Linear(nn.Linear):
         return F.linear(x.to(d), self.weight.to(d), bias)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode running variance is flax's: the biased
+    batch variance (``nn.BatchNorm2d`` takes the unbiased one, n / (n - 1) of
+    it). torch momentum 0.1 is flax momentum 0.9. The batch statistics that
+    normalise, and their gradient, are torch's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        old = self.running_var.detach().clone()
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            # torch added momentum * var * n / (n - 1) to keep * old: take it back to var.
+            # Through .data: the train-mode backward reads the batch's own statistics,
+            # not the running ones it was handed
+            rv = self.running_var.data
+            rv.copy_(keep * old + (rv - keep * old) * ((n - 1) / n))
+        return y
+
+
 class ConvBlock(nn.Module):
     """Conv2d (no bias) + BatchNorm (eps 1e-5) + SiLU, symmetric k//2 padding."""
 
@@ -55,7 +81,7 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
                            padding=kernel_size // 2, bias=False, compute_dtype=dtype)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self.bn(self.conv(x)))
@@ -112,9 +138,49 @@ class SPPBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cv1(x)
-        # max_pool2d pads with -inf, as flax's max_pool does
-        pools = [x] + [F.max_pool2d(x, k, stride=1, padding=k // 2) for k in self.kernel_sizes]
+        if self.training:  # JAX's train path: incremental shift-max pools
+            pools, prev_k = [x], 1
+            for k in self.kernel_sizes:
+                grow = k - prev_k + 1
+                pools.append(maxpool_same_shiftmax(pools[-1], grow) if grow >= 2 and prev_k > 1
+                             else maxpool_same_shiftmax(x, k))
+                prev_k = k
+        else:  # max_pool2d pads with -inf, as flax's max_pool does
+            pools = [x] + [F.max_pool2d(x, k, stride=1, padding=k // 2)
+                           for k in self.kernel_sizes]
         return self.cv2(torch.cat(pools, dim=1))
+
+
+def _shift_left(t: torch.Tensor, s: int, dim: int) -> torch.Tensor:
+    """t shifted left by s along dim (2 or 3), the vacated tail -inf."""
+    if s == 0:
+        return t
+    pad = (0, s, 0, 0) if dim == 3 else (0, 0, 0, s)
+    return F.pad(t, pad, value=float("-inf")).narrow(dim, s, t.shape[dim])
+
+
+def _window_max_1d(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """out[i] = max(x[i .. i + k - 1]) along dim by doubling spans."""
+    m, span = x, 1
+    while span * 2 <= k:
+        m = torch.maximum(m, _shift_left(m, span, dim))
+        span *= 2
+    if span < k:
+        m = torch.maximum(m, _shift_left(m, k - span, dim))
+    return m
+
+
+def maxpool_same_shiftmax(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Stride-1 SAME k x k max pool (NCHW) as JAX's separable shift-max chain
+    (``_maxpool_same_shiftmax``): the values of ``max_pool2d``, and a gradient
+    of elementwise maxima, rows then columns."""
+    p = k // 2
+    out = x
+    for dim in (2, 3):
+        pad = (0, 0, p, 0) if dim == 2 else (p, 0, 0, 0)
+        m = _window_max_1d(F.pad(out, pad, value=float("-inf")), k, dim)
+        out = m.narrow(dim, 0, x.shape[dim])
+    return out
 
 
 def space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -136,7 +202,7 @@ class FocusBlock(nn.Module):
         kf = 2 * kernel_size
         self.conv = Conv2d(in_channels, out_channels, kf, stride=2,
                            padding=2 * (kernel_size // 2), bias=False, compute_dtype=dtype)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self.bn(self.conv(x)))

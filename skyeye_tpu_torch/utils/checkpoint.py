@@ -18,6 +18,15 @@ it by shape, leaving the rest of a module's weights as they are, and
 ``save_model`` writes the port's own ``state_dict`` and config to a ``.pt``
 that ``load_model`` reads back without conversion. ``fuse_conv_bn`` folds
 BatchNorm into the preceding conv, on the port's own ``state_dict``.
+
+Training: ``save_train_checkpoint`` writes ``save_model``'s layout with the
+EMA weights as its ``state_dict`` (so the facade and ``validate`` serve a
+``last.pt`` as JAX serves its ``ema_params``), and beside them the model's own
+weights, the optimizer and accumulation state, ``step``, ``epoch``,
+``best_fitness`` and the config; ``restore_train_state`` puts one back into a
+train state. ``from_jax_train_state`` carries JAX's ``TrainState`` (params,
+batch_stats, EMA, the trace or Adam moments, the ``MultiSteps`` counters),
+as numpy, into the same fields, so both can start from one mid-run state.
 """
 from __future__ import annotations
 
@@ -313,3 +322,136 @@ def load_model(weights, num_classes: Optional[int] = None, dtype: torch.dtype = 
         module = create_detector(load_model_config(weights), num_classes=num_classes,
                                  dtype=dtype, device=device, seed=seed)
     return module
+
+
+# -- training state ------------------------------------------------------------------
+
+
+def save_train_checkpoint(path, state, epoch: int, best_fitness: float, config) -> Path:
+    """``state`` (``train.TrainState``) to a ``.pt`` in ``save_model``'s layout.
+    Its ``state_dict`` holds the weights that are served and validated, as JAX
+    serves a training checkpoint's ``ema_params``: the EMA parameters with the
+    model's BatchNorm statistics. Beside them: ``train_state_dict`` (the model's
+    own parameters and statistics, which training resumes from),
+    ``ema_updates``, ``optimizer``, ``step``, ``epoch``, ``best_fitness``."""
+    from ..train.ema import ema_weights
+
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+
+    def cpu(sd):
+        return {k: v.detach().cpu() for k, v in sd.items()}
+
+    torch.save({"layout": PORT_LAYOUT, "config": config.to_dict(),
+                "state_dict": cpu(ema_weights(state.ema, state.model)),
+                "train_state_dict": cpu(state.model.state_dict()),
+                "ema_updates": int(state.ema.updates), "optimizer": state.opt.state_dict(),
+                "step": int(state.step), "epoch": int(epoch),
+                "best_fitness": float(best_fitness)}, tmp)
+    tmp.replace(path)
+    return path
+
+
+def restore_train_state(state, ckpt: Mapping[str, Any]) -> None:
+    """Put a checkpoint's (or ``from_jax_train_state``'s) fields into ``state``:
+    the model from ``train_state_dict``, EMA from the parameters of
+    ``state_dict`` (a file without ``train_state_dict``, as ``save_model``
+    writes, starts both from ``state_dict``), step, and the optimizer state
+    where it fits the optimizer (else it is logged and the momenta start from
+    zero, as JAX does)."""
+    device = next(state.model.parameters()).device
+    served = ckpt["state_dict"]
+    sd = ckpt.get("train_state_dict") or served
+    own = state.model.state_dict()
+    state.model.load_state_dict({k: sd[k] if k in sd else own[k] for k in own}, strict=True)
+    for k, t in state.ema.params.items():
+        t.copy_(served[k].to(device))
+    state.ema.updates = int(ckpt.get("ema_updates", 0))
+    state.step = int(ckpt.get("step", 0))
+    if ckpt.get("optimizer"):
+        try:
+            state.opt.load_state_dict(ckpt["optimizer"])
+        except (ValueError, KeyError) as e:
+            LOGGER.warning("could not restore optimizer state (%s); momenta restart from zero", e)
+
+
+def _nodes(node):
+    """Every node of a tree of NamedTuples, dicts, lists and tuples (an optax
+    state, read without optax), depth first."""
+    yield node
+    if hasattr(node, "_fields"):
+        children = [getattr(node, f) for f in node._fields]
+    elif isinstance(node, dict):
+        children = list(node.values())
+    elif isinstance(node, (list, tuple)):
+        children = list(node)
+    else:
+        children = []
+    for child in children:
+        yield from _nodes(child)
+
+
+def _fields(node, name: str):
+    """The values of every NamedTuple field ``name`` in the tree."""
+    return [getattr(n, name) for n in _nodes(node)
+            if hasattr(n, "_fields") and name in n._fields]
+
+
+def _flat_arrays(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays -> {"a/b/c": array}; leaves that are not arrays
+    (optax's ``MaskedNode`` for another group's parameters) are skipped."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flat_arrays(v, path))
+        elif hasattr(v, "shape") and hasattr(v, "dtype"):
+            out[path] = np.asarray(v)
+    return out
+
+
+def _as_port_params(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return from_jax_variables({f"params/{k}": v for k, v in flat.items()})
+
+
+def from_jax_train_state(jax_state, accumulate: int = 1) -> Dict[str, Any]:
+    """JAX's ``TrainState`` after ``jax.device_get`` (numpy leaves) -> the fields
+    ``restore_train_state`` reads. Each optimizer group's trace (or Adam's
+    mu and nu) is one tree with the other group's leaves masked out: they are
+    merged. ``accumulate`` is ``MultiSteps``'s k (static in JAX)."""
+    flat_vars = {f"params/{k}": v for k, v in _flat_arrays(jax_state.params).items()}
+    flat_vars.update({f"batch_stats/{k}": v
+                      for k, v in _flat_arrays(jax_state.batch_stats).items()})
+    opt = jax_state.opt_state
+    out_opt: Dict[str, Any] = {"accumulate": accumulate}
+    hyper = _fields(opt, "hyperparams")
+    if hyper:
+        out_opt["hyperparams"] = {k: float(np.asarray(v)) for k, v in hyper[0].items()}
+    mus = _fields(opt, "mu")
+    if mus:
+        out_opt["adam"] = True
+        for name in ("mu", "nu"):
+            merged = {}
+            for tree in _fields(opt, name):
+                merged.update(_flat_arrays(tree))
+            out_opt[name] = _as_port_params(merged)
+        # Adam's own count (optimizer steps), not inject_hyperparams' (micro-steps)
+        adam = next(n for n in _nodes(opt) if hasattr(n, "_fields") and "nu" in n._fields)
+        out_opt["count"] = int(np.asarray(adam.count))
+    else:
+        out_opt["adam"] = False
+        merged = {}
+        for tree in _fields(opt, "trace"):
+            merged.update(_flat_arrays(tree))
+        out_opt["trace"] = _as_port_params(merged)
+    acc = _fields(opt, "acc_grads")
+    if acc:
+        out_opt["acc_grads"] = _as_port_params(_flat_arrays(acc[0]))
+        out_opt["mini_step"] = int(np.asarray(_fields(opt, "mini_step")[0]))
+        out_opt["gradient_step"] = int(np.asarray(_fields(opt, "gradient_step")[0]))
+    ema_vars = {f"params/{k}": v for k, v in _flat_arrays(jax_state.ema.params).items()}
+    ema_vars.update({k: v for k, v in flat_vars.items() if k.startswith("batch_stats/")})
+    return {"state_dict": from_jax_variables(ema_vars),
+            "train_state_dict": from_jax_variables(flat_vars),
+            "ema_updates": int(np.asarray(jax_state.ema.updates)),
+            "step": int(np.asarray(jax_state.step)), "optimizer": out_opt}

@@ -1,13 +1,17 @@
 """Small helpers shared by the port: device resolution, image-size rounding,
-run directories and the dataset description."""
+run directories, the dataset description, and the training run's seeding,
+resume lookup, class weights and argument log."""
 from __future__ import annotations
 
+import glob
 import logging
 import math
 import os
+import random
 from pathlib import Path
-from typing import Union
+from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..config import DataConfig
@@ -79,3 +83,32 @@ def check_dataset(data):
         if p and not Path(p).exists():
             LOGGER.warning("dataset split %s not found at %s", split, p)
     return cfg
+
+
+def init_seeds(seed: int = 0) -> None:
+    """Seed Python's and numpy's global generators, as JAX's ``init_seeds`` does.
+    The port's own draws go through explicit generators made from ``seed``."""
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def get_latest_run(search_dir: str = ".") -> str:
+    """The most recent ``last*`` checkpoint under search_dir (for resume)."""
+    paths = glob.glob(f"{search_dir}/**/last*", recursive=True)
+    return max(paths, key=os.path.getctime) if paths else ""
+
+
+def labels_to_class_weights(labels: Sequence[np.ndarray], nc: int = 80) -> np.ndarray:
+    """Inverse-frequency class weights from dataset labels (YOLOv5 convention)."""
+    if not len(labels):
+        return np.ones(nc) / nc
+    classes = np.concatenate([l[:, 0] for l in labels if len(l)], 0).astype(int) \
+        if any(len(l) for l in labels) else np.zeros(0, int)
+    counts = np.bincount(classes, minlength=nc).astype(float)
+    counts[counts == 0] = 1
+    weights = 1.0 / counts
+    return weights / weights.sum()
+
+
+def print_args(args: Optional[Dict] = None, show_file: bool = True) -> None:
+    LOGGER.info(", ".join(f"{k}={v}" for k, v in (args or {}).items()))

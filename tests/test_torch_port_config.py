@@ -90,3 +90,53 @@ def test_box_iou_matches_jax():
     got = tboxes.box_iou(torch.from_numpy(a), torch.from_numpy(b))
     assert got.shape == (30, 17)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+def test_default_hyp_matches_jax():
+    assert tcfg.DEFAULT_HYP == jcfg.DEFAULT_HYP
+
+
+@pytest.mark.parametrize("values", [
+    {"lr0": 1e-5, "momentum": 0.9, "mosaic": 0, "warmup_epochs": 2},
+    {"lr0": 0.02, "hsv_h": 0.0, "anchor_t": 3.5, "new_key": 7},
+])
+def test_hyp_files_read_as_jax_reads_them(values, tmp_path):
+    """A hyp file written by PyYAML and one by ``dump_flat_yaml``: the port's flat
+    reader gives JAX's ``load_hyp`` numbers; PyYAML reads the port's file back."""
+    import yaml
+
+    by_yaml, by_port = tmp_path / "a.yaml", tmp_path / "b.yaml"
+    by_yaml.write_text(yaml.safe_dump(values))
+    by_port.write_text(tcfg.dump_flat_yaml(values))
+    assert tcfg.load_hyp(by_yaml) == jcfg.load_hyp(by_yaml)
+    assert tcfg.load_hyp(by_port) == jcfg.load_hyp(by_port)
+    assert yaml.safe_load(by_port.read_text()) == values
+    assert tcfg.load_hyp(None) == jcfg.load_hyp(None)
+
+
+@pytest.mark.parametrize("line", ["lr0: 1e-5", "lr0: fast", "lr0: [1, 2]", "  lr0: 0.1"])
+def test_hyp_reader_refuses_what_is_not_a_flat_number(line, tmp_path):
+    path = tmp_path / "h.yaml"
+    path.write_text(line + "\n")
+    with pytest.raises(ValueError):
+        tcfg.load_hyp(path)
+
+
+def test_run_helpers_match_jax():
+    from skyeye_tpu.utils import autoanchor as jaa
+    from skyeye_tpu.utils import general as jgen
+    from skyeye_tpu_torch.utils import autoanchor as taa
+    from skyeye_tpu_torch.utils import general as tgen
+
+    rng = np.random.default_rng(0)
+    labels = [np.column_stack([rng.integers(0, 5, n), rng.uniform(0.05, 0.9, (n, 4))])
+              for n in (3, 0, 7, 2)]
+    np.testing.assert_array_equal(tgen.labels_to_class_weights(labels, 6),
+                                  jgen.labels_to_class_weights(labels, 6))
+    wh = rng.uniform(4, 200, (60, 2))
+    anchors = np.asarray(tcfg.DEFAULT_ANCHORS)
+    assert taa.check_anchors(wh, anchors, (8, 16, 32)) == jaa.check_anchors(
+        wh, anchors, (8, 16, 32))
+    np.testing.assert_array_equal(taa.kmean_anchors(wh, n=9, iterations=30, seed=3),
+                                  jaa.kmean_anchors(wh, n=9, iterations=30, seed=3))
+    assert taa.anchor_fitness(wh, anchors[0] * 8) == jaa.anchor_fitness(wh, anchors[0] * 8)

@@ -185,8 +185,29 @@ def test_batch_loader_matches_jax_python_path(data_root, python_path, rect):
     assert int(ours[-1]["n_valid"]) == len(SHAPES) - 10
 
 
+def test_infinite_loader_matches_jax_across_passes(data_root, python_path):
+    """Batches without end, shuffled anew each pass from the seed, as JAX's
+    ``InfiniteBatchLoader`` gives them: 7 batches of 5 from 12 frames run into
+    a third pass (the last batch of each pass padded by wrapping around)."""
+    split = data_root / "images" / "val"
+    kw = dict(img_size=128, stride=32, cache_images=False, max_labels=8)
+    ours = dataset.InfiniteBatchLoader(dataset.AerialDataset(split, **kw), batch_size=5,
+                                       shuffle=True, workers=2, seed=3)
+    theirs = jax_dataset.InfiniteBatchLoader(jax_dataset.AerialDataset(split, **kw),
+                                             batch_size=5, shuffle=True, workers=2, seed=3)
+    assert not theirs._use_native
+    got, want = list(ours.take(7)), list(theirs.take(7))
+    assert len(got) == len(want) == 7
+    for a, b in zip(got, want):
+        assert a.keys() == b.keys()
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
 def test_augment_raises_naming_the_training_slice(data_root):
-    with pytest.raises(NotImplementedError, match="Slice C"):
+    """Host augmentation is what training has not ported: the message names its
+    ROADMAP item and the device augmentation that training uses instead."""
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 10.*--device-aug"):
         dataset.AerialDataset(data_root / "images" / "val", augment=True)
 
 

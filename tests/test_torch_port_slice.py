@@ -180,12 +180,14 @@ def test_main_path_imports_no_jax():
         "import skyeye_tpu_torch, skyeye_tpu_torch.api, skyeye_tpu_torch.ops.nms_kernel\n"
         "import skyeye_tpu_torch.ops.attention_kernel, skyeye_tpu_torch.ops.csp_kernel\n"
         "import skyeye_tpu_torch.ops.fused_csp, skyeye_tpu_torch.models.attention\n"
-        "import skyeye_tpu_torch.tools.attention_precision\n"
+        "import skyeye_tpu_torch.tools.attention_precision, skyeye_tpu_torch.tools.train_grad_noise\n"
         "import skyeye_tpu_torch.ops.late_decode, skyeye_tpu_torch.ops.tiling\n"
         "import skyeye_tpu_torch.utils.checkpoint\n"
         "import skyeye_tpu_torch.data.dataset, skyeye_tpu_torch.data.imageio\n"
         "import skyeye_tpu_torch.data.prefetch, skyeye_tpu_torch.utils.metrics\n"
         "import skyeye_tpu_torch.utils.coco_eval, skyeye_tpu_torch.cli.validate\n"
+        "import skyeye_tpu_torch.cli.train, skyeye_tpu_torch.train, skyeye_tpu_torch.losses\n"
+        "import skyeye_tpu_torch.data.device_aug, skyeye_tpu_torch.utils.autoanchor\n"
         "import chip_smoke\n"
         "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
