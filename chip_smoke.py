@@ -7,8 +7,8 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
 
   device   the card, its power limit, and the torch/CUDA versions; no CUDA -> exit 1
   build    nvcc builds the three kernel libraries (csrc/nms.cu, attention.cu,
-           csp.cu) and the host PNG unfilter (csrc/png_unfilter.cu) in parallel,
-           each into a plain-C library
+           csp.cu), the host PNG unfilter (csrc/png_unfilter.cu) and the host
+           JPEG codec (csrc/jpeg.cu) in parallel, each into a plain-C library
   kernels  K1 (batched greedy NMS) and K2 (single-image greedy NMS) against their
            plain PyTorch versions on the card, index for index, on seeded inputs
            from k 200 to 8192 and on a case of NaN scores and coordinates, +inf
@@ -89,6 +89,20 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            gave it (B 16, k 8192); K1 timed there; the host's decode and
            letterbox a frame, and the C PNG unfilter (host code) against its
            numpy version on a Paeth-filtered 1080p frame
+  detect   ``cli.detect`` (``--save-txt --save-conf --save-crop``) on skyeye_s at
+           full width with seeded weights (one .pt), 1280 px, float32 with TF32
+           off, over 16 JPEG frames of 1080x1920 that the port's C encoder writes
+           from ``frames``; K1 once a frame (16 launches, counted over just that
+           run); every ``labels/*.txt`` line equal, to its printed digits, to
+           ``infer`` + rescale on the same ``LoadImages`` frames, K1 index for
+           index against the plain NMS on those inputs; every annotated JPEG
+           decoding to its frame's shape, every crop decoding; the C JPEG
+           encoder and decoder byte for byte and pixel for pixel against their
+           plain versions on a noisy 256x384 crop, each timed; C decode and
+           encode ms a 1080p frame, detect's ``Speed:`` figures and wall frames/s;
+           K1 timed on detect's input (B 1, k 1152); one frame through each
+           layer (decode, letterbox, copy, the card's stages, annotation,
+           encode, crops, labels), timed alone
   train    ``cli.train`` on skyeye_s at full width and depth, nc 10, float32 with
            TF32 off, 640 px, batch 16, device augmentation with DEFAULT_HYP,
            accumulate 4, 3 epochs of 3 batches over validate's 48 frames (train
@@ -117,7 +131,7 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
 The serving phases reach K1 through the facade's default cut: late decode
 (``ops/late_decode.py``), per level on the raw logits, k = 1152 at conf 0.25 and
 4096 at 0.001. Then a ``{"kernels": [...]}`` line (a kernel's ``launches`` summed
-over the paths in ``launches_by_path``: K1's include ``train``, K4's
+over the paths in ``launches_by_path``: K1's include ``detect`` and ``train``, K4's
 ``train_transformer``), the ``nvidia-smi`` name and
 power-limit line, and, last, ``{"ok": true, "device": {...}}``. A watchdog ends
 a hung run with a traceback and a non-zero exit. Imports torch, numpy and the
@@ -1486,6 +1500,221 @@ def phase_validate(torch, gpu_line, workdir):
                  launches=launches["batched_greedy_nms"])]
 
 
+DETECT_IMG = 1280
+DETECT_CODEC_FRAME = (256, 384)  # the C codec against its plain version on this crop
+
+
+def detect_label_lines(det, shape):
+    """``cli.detect``'s ``--save-txt --save-conf`` lines of one frame's rescaled
+    detections, in the order it writes them."""
+    h0, w0 = shape
+    lines = []
+    for *xyxy, conf, cls in reversed(det):
+        xywh = [(xyxy[0] + xyxy[2]) / 2 / w0, (xyxy[1] + xyxy[3]) / 2 / h0,
+                (xyxy[2] - xyxy[0]) / w0, (xyxy[3] - xyxy[1]) / h0]
+        lines.append(" ".join(f"{v:.6g}" for v in [int(cls), *xywh, conf]))
+    return lines
+
+
+def detect_layers_ms(torch, det, path, im, im0, d, tmp):
+    """One frame through detect's layers, each timed alone (host clock, median
+    of 3; the card's stages with a synchronize at each, second of two passes):
+    what a frame of ``cli.detect`` spends where."""
+    from skyeye_tpu_torch.data import imageio, jpeg
+    from skyeye_tpu_torch.data.loaders import _prep
+    from skyeye_tpu_torch.utils.visualization import Annotator, colors, save_one_box
+
+    tmp.mkdir(parents=True)
+    out = {"decode": host_ms(lambda: imageio.imread(path), 3),
+           "letterbox": host_ms(lambda: _prep(im0, DETECT_IMG, det.stride, False), 3),
+           "host_to_device": host_ms(lambda: (torch.from_numpy(im[None]).cuda(),
+                                              torch.cuda.synchronize()), 3)}
+    x = torch.from_numpy(im[None]).cuda()
+    for _ in range(2):
+        marks, t = {}, time.perf_counter()
+
+        def mark(name):
+            nonlocal t
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            marks[name] = (now - t) * 1e3
+            t = now
+
+        det.on_stage, t = mark, time.perf_counter()
+        det.infer(x, (x.shape[1], x.shape[2]))
+        det.on_stage = None
+    out.update({f"card_{k}": v for k, v in marks.items()})  # letterbox, model, decode (the cut), nms
+
+    def annotate():
+        ann = Annotator(im0.copy(), line_width=3)
+        for *xyxy, conf, cls in reversed(d):
+            ann.box_label(xyxy, f"{int(cls)} {conf:.2f}", colors(int(cls), True))
+        return ann.result()
+
+    def labels():
+        for row in detect_label_lines(d, im0.shape[:2]):
+            with open(tmp / "labels.txt", "a") as f:
+                f.write(row + "\n")
+
+    annotated = annotate()
+    out.update(annotate=host_ms(annotate, 3),
+               encode=host_ms(lambda: jpeg.encode(annotated), 3),
+               crops=host_ms(lambda: [save_one_box(xyxy, im0, file=tmp / "crop.jpg")
+                                      for *xyxy, _, _ in d], 3),
+               labels=host_ms(labels, 3), detections=len(d))
+    return out
+
+
+def phase_detect(torch, gpu_line, workdir):
+    """``cli.detect`` on 16 JPEG frames of 1080x1920 that the port's encoder
+    writes: skyeye_s at full width, 1280 px, float32 with TF32 off, K1 once a
+    frame; its labels against ``infer`` + rescale on the same ``LoadImages``
+    frames; the host C JPEG codec against its plain version."""
+    import logging
+    import re
+    from pathlib import Path
+
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.cli import detect as port_detect
+    from skyeye_tpu_torch.data import imageio, jpeg
+    from skyeye_tpu_torch.data.loaders import LoadImages
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.ops import nms_kernel
+    from skyeye_tpu_torch.ops.boxes import scale_boxes
+    from skyeye_tpu_torch.utils.checkpoint import save_model
+    from skyeye_tpu_torch.utils.general import LOGGER
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the reference pass sees the same logits
+    torch.backends.cudnn.benchmark = False
+    t_phase = time.perf_counter()
+    root = Path(workdir) / "detect"
+    src = root / "src"
+    src.mkdir(parents=True)
+
+    # the C codec against its plain version: a noisy crop, bytes and pixels
+    rng = np.random.RandomState(31)
+    ch, cw = DETECT_CODEC_FRAME
+    crop = np.clip(frames(30, 1)[0][:ch, :cw].astype(np.int16)
+                   + rng.randint(-12, 13, (ch, cw, 3)), 0, 255).astype(np.uint8)
+    c_bytes, plain_bytes = jpeg.encode(crop, native=True), jpeg.encode_plain(crop)
+    if c_bytes != plain_bytes:
+        fail(f"the C JPEG encoder's {len(c_bytes)} bytes differ from the plain version's "
+             f"{len(plain_bytes)}")
+    if not np.array_equal(jpeg.decode(c_bytes, native=True), jpeg.decode_plain(c_bytes)):
+        fail("the C JPEG decoder differs from its plain version")
+    codec = dict(frame=[ch, cw], bytes=len(c_bytes), equal=True,
+                 c_encode_ms=host_ms(lambda: jpeg.encode(crop, native=True), 5),
+                 plain_encode_ms=host_ms(lambda: jpeg.encode_plain(crop), 2),
+                 c_decode_ms=host_ms(lambda: jpeg.decode(c_bytes, native=True), 5),
+                 plain_decode_ms=host_ms(lambda: jpeg.decode_plain(c_bytes), 2))
+
+    # 16 JPEG frames, written by the port's encoder (the C version)
+    shots = frames(30)
+    encode_ms = []
+    for i, f in enumerate(shots):
+        t0 = time.perf_counter()
+        data = jpeg.encode(f)
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        (src / f"frame{i:02d}.jpg").write_bytes(data)
+    paths = sorted(src.glob("*.jpg"))
+    decode_ms = [host_ms(lambda p=p: imageio.imread(p), 1) for p in paths]
+    weights = save_model(create_detector("skyeye_s", device="cuda", seed=0), root / "skyeye_s.pt")
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    LOGGER.addHandler(handler)
+    level = LOGGER.level
+    LOGGER.setLevel(logging.INFO)
+    try:
+        nms_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        save_dir = port_detect.run(weights=str(weights), source=str(src),
+                                   imgsz=(DETECT_IMG, DETECT_IMG), device="cuda", save_txt=True,
+                                   save_conf=True, save_crop=True, project=str(root / "runs"),
+                                   name="exp")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(nms_kernel.LAUNCHES)
+    finally:
+        LOGGER.removeHandler(handler)
+        LOGGER.setLevel(level)
+    if launches["batched_greedy_nms"] != len(shots):
+        fail(f"detect launched batched_greedy_nms {launches['batched_greedy_nms']} times on "
+             f"{len(shots)} frames")
+    speed = next((m for m in records if m.startswith("Speed:")), "")
+    figures = re.findall(r"([0-9.]+)ms", speed)
+    if len(figures) != 2:
+        fail(f"detect logged no Speed line: {records[-3:]}")
+
+    # the labels against infer + rescale on the same LoadImages frames
+    ref = SkyEyeDetector(weights=str(weights), img_size=DETECT_IMG, device="cuda")
+    n_det, lines_checked, first = 0, 0, {}
+
+    def reference():
+        nonlocal n_det, lines_checked
+        for path, im, im0, _, _ in LoadImages(src, img_size=DETECT_IMG, stride=ref.stride):
+            x = torch.from_numpy(im[None]).cuda()
+            det, n = ref.infer(x, (x.shape[1], x.shape[2]))
+            d = det[0, : int(n[0])].float().cpu().numpy().copy()
+            if len(d):
+                d[:, :4] = scale_boxes(x.shape[1:3], torch.from_numpy(d[:, :4]),
+                                       im0.shape[:2]).numpy()
+            want = detect_label_lines(d, im0.shape[:2])
+            label = Path(save_dir) / "labels" / f"{Path(path).stem}.txt"
+            got = label.read_text().splitlines() if label.exists() else []
+            if got != want:
+                fail(f"detect's labels for {Path(path).name} differ from infer's: "
+                     f"{got[:2]} against {want[:2]}")
+            n_det += len(d)
+            lines_checked += len(got)
+            first.setdefault("frame", (im, im0, d))
+
+    inputs = record_k1_inputs(reference)
+    kept = hold_k1(torch, nms_kernel, inputs, "detect")
+    if n_det == 0:
+        fail("detect found nothing on 16 frames: the check above compared empty files")
+    boxes, scores, iou, md = inputs[0]
+    idx, valid = nms_kernel.batched_greedy_nms(boxes, scores, iou, md)
+    bound, by = nms_bound(boxes, scores, valid, md)
+    k1 = dict(shape=list(scores.shape), kept=valid.sum(dim=1).tolist(),
+              ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms(boxes, scores, iou, md), 30),
+              device_ms=graph_ms(lambda: nms_kernel.batched_greedy_nms(
+                  boxes, scores, iou, md), 30),
+              plain_ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms_plain(
+                  boxes, scores, iou, md), 5),
+              bound_ms=bound, bound_by=by)
+    layers = detect_layers_ms(torch, ref, paths[0], *first["frame"], root / "layers")
+    annotated = sorted(Path(save_dir).glob("*.jpg"))
+    if [p.name for p in annotated] != [p.name for p in paths]:
+        fail(f"detect wrote {len(annotated)} annotated frames for {len(paths)}")
+    for p in annotated:
+        if imageio.imread(p).shape != shots[0].shape:
+            fail(f"{p.name} decodes to the wrong shape")
+    crops = sorted((Path(save_dir) / "crops").rglob("*.jpg"))
+    for p in crops:
+        if imageio.imread(p).ndim != 3:
+            fail(f"crop {p} does not decode")
+
+    emit("detect", model="skyeye_s", img_size=DETECT_IMG, frames=len(shots),
+         frame_shape=list(shots[0].shape), jpeg_bytes_per_frame=float(np.mean(
+             [p.stat().st_size for p in paths])),
+         launches=launches, k1_on_reference=kept[:2], detections=n_det,
+         label_lines_equal=lines_checked, annotated=len(annotated), crops=len(crops),
+         k1_timed=k1, layers_ms_per_frame=layers,
+         speed={"pre_process_ms_per_image": float(figures[0]),
+                "inference_nms_ms_per_image": float(figures[1])},
+         detect_s=wall_s, wall_frames_per_s=len(shots) / wall_s,
+         c_decode_ms_per_frame=float(np.median(decode_ms)),
+         c_encode_ms_per_frame=float(np.median(encode_ms)), codec_vs_plain=codec,
+         card=gpu_line, phase_s=time.perf_counter() - t_phase)
+    del ref, inputs
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="detect", launches=launches["batched_greedy_nms"])]
+
+
 TRAIN_IMG, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 3  # JAX's defaults; 3 batches an epoch
 TRAIN_ACCUMULATE = 4  # JAX's default at batch 16 (nominal batch 64)
 # float32 (TF32 off) gradients against float64 on the run's first augmented batch
@@ -1920,7 +2149,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # fails where the port is absent
-    from skyeye_tpu_torch.data import imageio
+    from skyeye_tpu_torch.data import imageio, jpeg
     from skyeye_tpu_torch.ops import attention_kernel, csp_kernel, nms_kernel
 
     gpu_line = nvidia_smi()
@@ -1932,7 +2161,8 @@ def main() -> int:
     libraries = {"nms.cu": nms_kernel.nms_library,
                  "attention.cu": attention_kernel.attention_library,
                  "csp.cu": csp_kernel.csp_library,
-                 "png_unfilter.cu": imageio.png_unfilter_library}  # host code, no kernel
+                 "png_unfilter.cu": imageio.png_unfilter_library,  # host code, no kernel
+                 "jpeg.cu": jpeg.jpeg_library}  # host code, no kernel
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         futures = {src: pool.submit(fn) for src, fn in libraries.items()}
@@ -1953,6 +2183,7 @@ def main() -> int:
     summary += phase_serve_tiled(torch, gpu_line)
     with tempfile.TemporaryDirectory(prefix="skyeye_smoke_") as workdir:
         summary += phase_validate(torch, gpu_line, workdir)
+        summary += phase_detect(torch, gpu_line, workdir)
         summary += phase_train(torch, gpu_line, workdir)
         summary += phase_train_transformer(torch, gpu_line, workdir)
     summary = merge_by_kernel(summary)

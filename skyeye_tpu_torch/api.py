@@ -1,13 +1,15 @@
 """Serving API: ``SkyEyeDetector`` facade and ``Results`` container.
 
-Port of the serving part of ``skyeye_tpu/api.py``: uint8 frames (or PNG/BMP
-paths, read by ``data.imageio.imread``) -> device letterbox and /255 ->
+Port of the serving part of ``skyeye_tpu/api.py``: uint8 frames (or PNG, BMP
+or JPEG paths, read by ``data.imageio.imread``) -> device letterbox and /255 ->
 detector (in its ``dtype``) -> candidate cut -> greedy NMS (one launch of the
 hand-written kernel per batch) -> boxes rescaled to each frame. The single-label default cuts on the raw logits per level and decodes
 only the survivors (``ops/late_decode.py``); ``approx_topk=False`` or
 ``multi_label`` decodes everything and takes one global cut. Frames are grouped
 by shape and run in power-of-two batch buckets. Everything runs on the device
-the detector was built for; CUDA is the default.
+the detector was built for; CUDA is the default. ``Results`` draws
+(``render``/``save``/``crop``) with ``utils.visualization`` and writes with
+``data.imageio.imwrite``, as JAX's does with cv2.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .data.imageio import imread
+from .data.imageio import imread, imwrite
 from .models.detector import create_detector
 from .models.head import decode_predictions
 from .ops.late_decode import topk_candidates
@@ -27,6 +29,7 @@ from .ops.letterbox import letterbox_batch, letterbox_params
 from .ops.nms import nms_batched, serving_max_nms, suppress_candidates_batched
 from .utils.checkpoint import fuse_conv_bn, load_model
 from .utils.general import LOGGER, check_img_size, resolve_device
+from .utils.visualization import Annotator, colors, save_one_box
 
 
 class Results:
@@ -59,6 +62,65 @@ class Results:
                 d[:, 3] = det[:, 3] - det[:, 1]
             out.append(d)
         return out
+
+    def pandas(self):
+        """Per-image pandas DataFrames with named columns (pandas imported here,
+        as JAX does: the port needs it nowhere else)."""
+        import pandas as pd
+
+        cols = ["xmin", "ymin", "xmax", "ymax", "confidence", "class"]
+        frames = []
+        for det in self.detections:
+            df = pd.DataFrame(det, columns=cols)
+            df["name"] = [self.names[int(c)] if int(c) < len(self.names) else str(int(c))
+                          for c in df["class"]]
+            frames.append(df)
+        return frames
+
+    def _image(self, i: int) -> np.ndarray:
+        """Original image i, read from its path when it was not kept."""
+        if self.images[i] is None:
+            self.images[i] = imread(self.paths[i])
+        return self.images[i]
+
+    def render(self) -> List[np.ndarray]:
+        """Annotated copies of the original images (BGR)."""
+        out = []
+        for i, det in enumerate(self.detections):
+            ann = Annotator(self._image(i).copy())
+            for *xyxy, conf, cls in det:
+                c = int(cls)
+                name = self.names[c] if c < len(self.names) else str(c)
+                ann.box_label(xyxy, f"{name} {conf:.2f}", colors(c, True))
+            out.append(ann.result())
+        return out
+
+    def show(self) -> None:
+        """JAX shows the images with cv2's window; the port has no display library."""
+        LOGGER.warning("show() unavailable (%s); use save() instead",
+                       "the port has no display library")
+
+    def save(self, save_dir: Union[str, Path] = "runs/detect") -> List[Path]:
+        save_dir = Path(save_dir)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        files = []
+        for i, im in enumerate(self.render()):
+            name = Path(self.paths[i]).name if i < len(self.paths) else f"image{i}.jpg"
+            f = save_dir / name
+            imwrite(f, im)
+            files.append(f)
+        LOGGER.info("saved %d annotated images to %s", len(files), save_dir)
+        return files
+
+    def crop(self, save_dir: Union[str, Path] = "runs/detect/crops") -> List[np.ndarray]:
+        crops = []
+        for i, det in enumerate(self.detections):
+            for j, (*xyxy, conf, cls) in enumerate(det):
+                name = self.names[int(cls)] if int(cls) < len(self.names) else str(int(cls))
+                crops.append(save_one_box(
+                    xyxy, self._image(i),
+                    file=Path(save_dir) / name / f"{Path(self.paths[i]).stem}_{j}.jpg"))
+        return crops
 
     def print(self) -> None:
         for i, det in enumerate(self.detections):
@@ -131,9 +193,12 @@ class SkyEyeDetector:
 
     @torch.inference_mode()
     def infer(self, frames: torch.Tensor, out_shape: Tuple[int, int], multi_label: bool = False,
-              agnostic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              agnostic: bool = False, class_mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) uint8 RGB frames on the detector's device ->
-        ((B, max_det, 6) detections in letterboxed pixels, (B,) counts)."""
+        ((B, max_det, 6) detections in letterboxed pixels, (B,) counts).
+        ``class_mask`` (nc,) bool on that device keeps only the classes it marks
+        (``cli.detect --classes``)."""
         x = (letterbox_batch(frames, out_shape) / 255.0).to(self.model.dtype)
         self._stage("letterbox")
         outs = self.model(x.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
@@ -141,7 +206,8 @@ class SkyEyeDetector:
         max_nms = serving_max_nms(self.conf_thres)
         if self.approx_topk and not multi_label:
             cut = topk_candidates(outs, self.config.anchors, out_shape,
-                                  conf_thres=self.conf_thres, max_nms=max_nms)
+                                  conf_thres=self.conf_thres, max_nms=max_nms,
+                                  class_mask=class_mask)
             self._stage("decode")  # the cut on the logits and the survivors' decode
             out = suppress_candidates_batched(*cut, iou_thres=self.iou_thres,
                                               max_det=self.max_det, agnostic=agnostic)
@@ -150,7 +216,7 @@ class SkyEyeDetector:
             self._stage("decode")
             out = nms_batched(dec, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
                               multi_label=multi_label, agnostic=agnostic,
-                              max_det=self.max_det, max_nms=max_nms)
+                              max_det=self.max_det, max_nms=max_nms, class_mask=class_mask)
         self._stage("nms")
         return out
 
@@ -181,7 +247,7 @@ class SkyEyeDetector:
     def __call__(self, source, size: Optional[int] = None, multi_label: bool = False,
                  agnostic: bool = False) -> Results:
         """Detect on image path(s) or HWC BGR uint8 frame(s), as cv2 reads them.
-        Paths are read by ``data.imageio.imread`` (PNG and BMP; JPEG raises)."""
+        Paths are read by ``data.imageio.imread`` (PNG, BMP and JPEG)."""
         imgs, paths = self._load_sources(source)
         out_size = check_img_size(size or self.img_size, self.stride)
 
@@ -216,6 +282,17 @@ class SkyEyeDetector:
             "total_ms": total / max(len(imgs), 1) * 1000,
         }
         return Results(detections, imgs, paths, self.names, times)
+
+    def predict_files(self, paths: Sequence[Union[str, Path]], size: Optional[int] = None,
+                      multi_label: bool = False, agnostic: bool = False) -> Results:
+        """Detect on image files. JAX's batch path decodes, letterboxes and packs
+        in its native C++ library (``native/skyeye_prep.cc``) and takes
+        ``__call__`` where that library is missing; the port has no native
+        library, so this is ``__call__`` on the paths, which decodes in Python
+        and letterboxes on the device (JAX's native letterbox skips the
+        INTER_AREA pre-resize, so its pixels differ from both)."""
+        return self([str(p) for p in paths], size=size, multi_label=multi_label,
+                    agnostic=agnostic)
 
     @staticmethod
     def _load_sources(source) -> Tuple[List[np.ndarray], List[str]]:

@@ -21,7 +21,7 @@ Not ported, each raising NotImplementedError with its ROADMAP item:
 ``fsdp`` and ``spatial_shards > 1`` (multi-device). ``packed_stem`` is a TPU
 lane remap of the stem that JAX calls numerically equivalent: the port trains
 the canonical stem for either value (ROADMAP Queue 1 item 9). The figures of
-``plot_results`` are not drawn (a warning; the visualization slice).
+``plot_results`` are not drawn (a warning; the plotting slice, Queue 1 item 15).
 
 Usage: python -m skyeye_tpu_torch.cli.train --cfg skyeye_s --data drone.yaml \\
            --epochs 100 --batch-size 16 --device-aug
@@ -272,7 +272,7 @@ def train(
             break
 
     LOGGER.warning("results.png not drawn from %s: plot_results belongs to the "
-                   "visualization slice (ROADMAP.md, Queue 1 item 7)", results_file)
+                   "plotting slice (ROADMAP.md, Queue 1 item 15)", results_file)
     LOGGER.info("training complete; best fitness %.4f; weights in %s", best_fit, wdir)
     return final_results, save_dir
 

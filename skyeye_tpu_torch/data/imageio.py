@@ -8,10 +8,13 @@ The port's stand-in for what ``skyeye_tpu``'s data path takes from them:
                      as ``verify()`` does
   ``imread``         ``cv2.imread(path)`` (IMREAD_COLOR): an (H, W, 3) uint8 BGR
                      array, for PNG (every colour type and bit depth, no
-                     interlacing) and uncompressed BMP; JPEG raises
+                     interlacing), uncompressed BMP and sequential JPEG
+                     (``data/jpeg.py``, EXIF orientation applied)
   ``resize_area``    ``cv2.resize(..., INTER_AREA)`` on uint8 HWC, shrinking
   ``resize_linear``  ``cv2.resize(..., INTER_LINEAR)`` on uint8 HWC
-  ``imwrite_png``    a PNG of one filter type, for test data
+  ``imwrite``        ``cv2.imwrite(path, im)`` for ``.jpg``/``.jpeg`` and ``.bmp``
+                     (the bytes cv2 writes) and ``.png`` (``imwrite_png``)
+  ``imwrite_png``    a PNG of one filter type
 
 The resizes repeat OpenCV's arithmetic (its coefficient tables, float32 area
 sums rounded half to even, 11-bit fixed-point linear weights with the vector
@@ -39,8 +42,6 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel, and the bit depths the PNG standard allows for it
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
-JPEG_NOT_PORTED = ("JPEG decoding is not in the port yet (ROADMAP.md, Queue 1 item 4: "
-                   "JPEG decode); convert the images to PNG or BMP")
 
 
 class ImageFormatError(ValueError):
@@ -296,9 +297,10 @@ def _bmp_read(data: bytes) -> np.ndarray:
 
 def imread(path) -> np.ndarray:
     """The image at ``path`` as an (H, W, 3) uint8 BGR array, as ``cv2.imread``
-    reads it: PNG and uncompressed BMP. Raises FileNotFoundError for a missing
-    file, ImageFormatError for a corrupt one or another format, and
-    NotImplementedError for JPEG."""
+    reads it: PNG, uncompressed BMP and sequential JPEG. Raises
+    FileNotFoundError for a missing file, ImageFormatError for a corrupt one or
+    another format, and NotImplementedError for progressive or arithmetic-coded
+    JPEG."""
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(f"image not found {path}")
@@ -308,7 +310,12 @@ def imread(path) -> np.ndarray:
     if data[:2] == b"BM":
         return _bmp_read(data)
     if data[:2] == b"\xff\xd8":
-        raise NotImplementedError(f"{path}: {JPEG_NOT_PORTED}")
+        from . import jpeg
+
+        try:
+            return jpeg.decode(data)
+        except ImageFormatError as e:
+            raise ImageFormatError(f"{path}: {e}") from None
     raise ImageFormatError(f"{path}: not a PNG, BMP or JPEG file")
 
 
@@ -350,6 +357,46 @@ def imwrite_png(path, img: np.ndarray, filter_type: int = 0, level: int = 1) -> 
     Path(path).write_bytes(PNG_SIGNATURE + _png_chunk(b"IHDR", header)
                            + _png_chunk(b"IDAT", zlib.compress(filtered.tobytes(), level))
                            + _png_chunk(b"IEND", b""))
+
+
+def imwrite(path, img: np.ndarray) -> None:
+    """``cv2.imwrite(path, img)`` by the suffix: ``.jpg``/``.jpeg`` and ``.bmp``
+    write the bytes cv2 writes at its defaults (``data/jpeg.py``, ``bmp_bytes``),
+    ``.png`` an 8-bit PNG (``imwrite_png``; cv2's deflate stream differs, its
+    pixels do not)."""
+    suffix = Path(path).suffix.lower()
+    if suffix in (".jpg", ".jpeg"):
+        from . import jpeg
+
+        Path(path).write_bytes(jpeg.encode(img))
+    elif suffix == ".bmp":
+        Path(path).write_bytes(bmp_bytes(img))
+    elif suffix == ".png":
+        imwrite_png(path, img)
+    else:
+        raise ValueError(f"imwrite writes .jpg, .jpeg, .bmp or .png, not {path}")
+
+
+def bmp_bytes(img: np.ndarray) -> bytes:
+    """The BMP ``cv2.imencode('.bmp', img)`` writes: 24-bit BGR, or 8-bit with a
+    gray palette, rows bottom-up padded to 4 bytes."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"bmp_bytes takes (H, W, 3) or (H, W) uint8, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    bits = 24 if img.ndim == 3 else 8
+    stride = ((w * bits // 8) + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : w * bits // 8] = img.reshape(h, -1)
+    palette = b""
+    if bits == 8:
+        table = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, axis=1)
+        table[:, 3] = 0
+        palette = table.tobytes()
+    offset = 54 + len(palette)
+    header = struct.pack("<2sIII", b"BM", offset + rows.size, 0, offset) + struct.pack(
+        "<IiiHHIIiiII", 40, w, h, 1, bits, 0, 0, 0, 0, 0, 0)
+    return header + palette + rows[::-1].tobytes()
 
 
 # -- resizing ---------------------------------------------------------------------

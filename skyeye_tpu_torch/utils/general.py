@@ -33,9 +33,10 @@ def make_divisible(x: float, divisor: int) -> int:
     return math.ceil(x / divisor) * divisor
 
 
-def check_img_size(imgsz: int, s: int = 32) -> int:
-    """Round an image size up to a multiple of the stride."""
-    new = make_divisible(imgsz, int(s))
+def check_img_size(imgsz, s: int = 32):
+    """Round an image size (or each of a list of sizes) up to a multiple of the stride."""
+    new = (make_divisible(imgsz, int(s)) if isinstance(imgsz, int)
+           else [make_divisible(x, int(s)) for x in imgsz])
     if new != imgsz:
         LOGGER.warning("img size %s must be a multiple of %d, using %s", imgsz, s, new)
     return new

@@ -12,8 +12,8 @@ same order (the validation test holds each function to JAX's at 1e-12):
                   column
 
 The figures (``ap_per_class(plot=True)``, ``ConfusionMatrix.plot``) belong to
-the visualization slice, which the port does not have yet (ROADMAP.md, Queue 1
-item 7): they log a warning saying so, and the numbers are returned all the same.
+the plotting slice, which the port does not have yet (ROADMAP.md, Queue 1
+item 15): they log a warning saying so, and the numbers are returned all the same.
 """
 from __future__ import annotations
 
@@ -23,8 +23,8 @@ import numpy as np
 
 from .general import LOGGER
 
-PLOTS_NOT_PORTED = ("the port has no plotting yet (ROADMAP.md, Queue 1 item 7: "
-                    "utils/visualization.py)")
+PLOTS_NOT_PORTED = ("the port has no plotting yet (ROADMAP.md, Queue 1 item 15: "
+                    "plot_* of utils/visualization.py)")
 
 
 def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:

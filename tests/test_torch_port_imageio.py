@@ -3,7 +3,7 @@
 ``imread`` must equal ``cv2.imread`` exactly on PNGs written by cv2, by PIL and
 by the port's own writer (every filter type, gray, RGBA, palette at 1, 4 and 8
 bits, with transparency, 16-bit) and on BMPs; ``image_size`` must equal PIL's
-``size`` (JPEG too); broken files raise where PIL's ``verify()`` or cv2 refuse
+``size`` (JPEG too; JPEG decoding is ``test_torch_port_jpeg.py``'s); broken files raise where PIL's ``verify()`` or cv2 refuse
 them. ``resize_area`` and ``resize_linear`` must equal ``cv2.resize`` with
 INTER_AREA and INTER_LINEAR bit for bit. The C unfilter loop is compiled here
 with the host C++ compiler and held against ``unfilter_plain``.
@@ -96,13 +96,18 @@ def test_imread_equals_cv2_and_image_size_equals_pil(tmp_path, name):
 
 @pytest.mark.parametrize("progressive", [False, True])
 def test_jpeg_size_equals_pil_and_decoding_names_the_roadmap(tmp_path, progressive):
+    """A baseline JPEG (PIL's writer) reads as cv2.imread reads it; a progressive
+    one raises, naming the roadmap item that will take it."""
     path = str(tmp_path / "frame.jpg")
     rgb = np.random.RandomState(1).randint(0, 256, (61, 97, 3)).astype(np.uint8)
     Image.fromarray(rgb).save(path, quality=90, progressive=progressive)
     with Image.open(path) as im:
         assert iio.image_size(path) == im.size == (97, 61)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        iio.imread(path)
+    if progressive:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            iio.imread(path)
+    else:
+        np.testing.assert_array_equal(iio.imread(path), cv2.imread(path))
 
 
 def _png_bytes(tmp_path):

@@ -134,8 +134,8 @@ def test_stage_hook_sees_each_stage_of_every_batch_in_order(detectors):
 
 
 def test_paths_and_arrays_of_the_same_frames_give_the_same_detections(detectors, tmp_path):
-    """Image paths go through ``data.imageio.imread`` (PNG, BMP), as JAX's go
-    through ``cv2.imread``; JPEG paths raise, naming the roadmap."""
+    """Image paths go through ``data.imageio.imread`` (PNG, BMP, JPEG), as JAX's
+    go through ``cv2.imread``."""
     import cv2
 
     _, port = detectors
@@ -153,8 +153,9 @@ def test_paths_and_arrays_of_the_same_frames_give_the_same_detections(detectors,
     mixed = port([paths[0], frames[1]])
     np.testing.assert_array_equal(mixed.xyxy[1], by_array.xyxy[1])
     cv2.imwrite(str(tmp_path / "frame.jpg"), frames[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(str(tmp_path / "frame.jpg"))
+    by_jpeg = port(str(tmp_path / "frame.jpg"))
+    np.testing.assert_array_equal(
+        by_jpeg.xyxy[0], port(cv2.imread(str(tmp_path / "frame.jpg"))).xyxy[0])
     with pytest.raises(TypeError):
         port([frames[0], 3])
 
@@ -172,8 +173,9 @@ def test_cuda_is_the_default_and_is_not_replaced_by_the_cpu():
 
 
 def test_main_path_imports_no_jax():
-    """The port, its API and chip_smoke.py import none of jax, flax, skyeye_tpu,
-    yaml, cv2 or PIL."""
+    """The port, its API, its CLIs and chip_smoke.py import none of jax, flax,
+    skyeye_tpu, yaml, cv2, PIL, matplotlib or pandas (``Results.pandas`` imports
+    pandas when it is called)."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -188,8 +190,10 @@ def test_main_path_imports_no_jax():
         "import skyeye_tpu_torch.utils.coco_eval, skyeye_tpu_torch.cli.validate\n"
         "import skyeye_tpu_torch.cli.train, skyeye_tpu_torch.train, skyeye_tpu_torch.losses\n"
         "import skyeye_tpu_torch.data.device_aug, skyeye_tpu_torch.utils.autoanchor\n"
+        "import skyeye_tpu_torch.cli.detect, skyeye_tpu_torch.data.loaders\n"
+        "import skyeye_tpu_torch.data.jpeg, skyeye_tpu_torch.utils.visualization\n"
         "import chip_smoke\n"
-        "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL')\n"
+        "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'pandas')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "assert not bad, bad\n"
         "print('clean')\n"
