@@ -127,12 +127,39 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            3 micro-steps (K4's launches counted: one a forward), ms a micro-step,
            peak memory, K4 timed on the input the step gave it beside
            ``scaled_dot_product_attention``
+  train_host_aug
+           ``cli.train`` as JAX trains by default (``device_aug=False``: the
+           loader augments on the host, ``data/augment.py``): skyeye_s at full
+           width and depth, nc 10, float32 with TF32 off, 640 px, batch 16,
+           DEFAULT_HYP (mosaic 1.0, translate 0.1, scale 0.5, HSV, fliplr 0.5),
+           4 workers, 2 epochs of 3 batches over validate's 48 frames,
+           validation after each (K1's launches counted over the run, each
+           input held index for index against the plain NMS); the loader's
+           first batch at 1 and at 4 workers byte for byte equal; every loss
+           finite; ``last.pt`` validated to its epoch's row; images/s and wall
+           s an epoch, the loader's ms a frame on one thread split into decode
+           and resize, mosaic, warp and HSV, and the card's micro-step on the
+           first batch split as ``train`` splits it (its loss the run's first)
+  train_remat
+           skyeye_l_transformer at full width and depth, 640 px, batch 16: one
+           micro-step from the seed-0 weights and the same batch at ``remat``
+           "" , "block" and "stage" (and "" again: the card's run-to-run
+           spread); loss, every gradient and every BatchNorm buffer against
+           no remat (bitwise equality reported, else the largest gap over
+           max|g|, held under 1e-6); K4 once a forward at each level; ms and
+           peak memory a level; one "stage" micro-step at 1280 px
+  evolve   ``cli.train(evolve=2, epochs=1)`` as in train_host_aug: ``evolve.csv``
+           has 2 rows, generation 1 the base hyp, generation 2 ``mutate_hyp``
+           of it from the seed's generator (recomputed here),
+           ``hyp_evolved.yaml`` reads back through ``config.load_hyp`` to the
+           best row; K1's launches counted over both generations' validations
 
 The serving phases reach K1 through the facade's default cut: late decode
 (``ops/late_decode.py``), per level on the raw logits, k = 1152 at conf 0.25 and
 4096 at 0.001. Then a ``{"kernels": [...]}`` line (a kernel's ``launches`` summed
-over the paths in ``launches_by_path``: K1's include ``detect`` and ``train``, K4's
-``train_transformer``), the ``nvidia-smi`` name and
+over the paths in ``launches_by_path``: K1's include ``detect``, ``train``,
+``train_host_aug`` and ``evolve``, K4's ``train_transformer`` and ``train_remat``),
+the ``nvidia-smi`` name and
 power-limit line, and, last, ``{"ok": true, "device": {...}}``. A watchdog ends
 a hung run with a traceback and a non-zero exit. Imports torch, numpy and the
 port only.
@@ -1783,6 +1810,35 @@ def first_batch(torch, data, img, seed=0):
             ds)
 
 
+def train_run(torch, port_train, port_validate, run):
+    """``run()`` (a cli.train call) observed: each micro-step's start and loss,
+    each validation's start and end, and every input K1 was handed."""
+    steps, vals = [], []
+    real_make, real_validate = port_train.make_train_step, port_validate.validate
+
+    def timed_make(*a, **k):
+        step = real_make(*a, **k)
+
+        def observed(state, batch):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            steps.append((t0, m["loss"]))
+            return state, m
+        return observed
+
+    def timed_validate(*a, **k):
+        t0 = time.perf_counter()
+        out = real_validate(*a, **k)
+        vals.append((t0, time.perf_counter()))
+        return out
+
+    with mock.patch.object(port_train, "make_train_step", timed_make), \
+            mock.patch.object(port_validate, "validate", timed_validate):
+        k1_inputs = record_k1_inputs(run)
+    torch.cuda.synchronize()
+    return steps, vals, k1_inputs
+
+
 def phase_train(torch, gpu_line, workdir):
     """``cli.train`` on skyeye_s at full width and depth, 640 px, batch 16, device
     augmentation, per-epoch validation on EMA weights through K1."""
@@ -1808,28 +1864,10 @@ def phase_train(torch, gpu_line, workdir):
     data = {"path": str(root), "train": "images/val", "val": "images/val",
             "nc": len(DRONE_NAMES), "names": DRONE_NAMES}
 
-    # -- the run, observed: each micro-step's host time and loss, whether the
-    # parameters changed, each validation's wall time and K1's inputs
-    steps, vals, emitted = [], [], []
-    real_make, real_validate, real_opt_step = (port_train.make_train_step,
-                                               port_validate.validate,
-                                               optimizer.RuntimeOptimizer.step)
-
-    def timed_make(*a, **k):
-        step = real_make(*a, **k)
-
-        def run(state, batch):
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            steps.append((t0, m["loss"]))
-            return state, m
-        return run
-
-    def timed_validate(*a, **k):
-        t0 = time.perf_counter()
-        out = real_validate(*a, **k)
-        vals.append((t0, time.perf_counter()))
-        return out
+    # -- the run, observed (``train_run``): each micro-step's host time and loss,
+    # each validation's wall time and K1's inputs; and whether the parameters changed
+    emitted = []
+    real_opt_step = optimizer.RuntimeOptimizer.step
 
     def watched_step(self, model):
         before = [p.detach().clone() for p in model.parameters()]
@@ -1841,14 +1879,12 @@ def phase_train(torch, gpu_line, workdir):
     nms_kernel.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with mock.patch.object(port_train, "make_train_step", timed_make), \
-            mock.patch.object(port_validate, "validate", timed_validate), \
-            mock.patch.object(optimizer.RuntimeOptimizer, "step", watched_step):
-        k1_inputs = record_k1_inputs(lambda: port_train.train(
-            cfg="skyeye_s", data=data, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
-            img_size=TRAIN_IMG, weights=str(weights), device_aug=True,
-            project=str(root / "runs_train"), name="exp", seed=0, device="cuda"))
-    torch.cuda.synchronize()
+    with mock.patch.object(optimizer.RuntimeOptimizer, "step", watched_step):
+        steps, vals, k1_inputs = train_run(
+            torch, port_train, port_validate, lambda: port_train.train(
+                cfg="skyeye_s", data=data, epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+                img_size=TRAIN_IMG, weights=str(weights), device_aug=True,
+                project=str(root / "runs_train"), name="exp", seed=0, device="cuda"))
     train_s = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(nms_kernel.LAUNCHES)
@@ -2129,6 +2165,324 @@ def phase_train_transformer(torch, gpu_line, workdir):
                  launches=launches["flash_attention"])]
 
 
+HOST_AUG_EPOCHS = 2  # train_host_aug: 3 batches an epoch over validate's 48 frames
+HOST_AUG_WORKERS = 4  # cli.train's default
+# remat levels against no remat on one micro-step, of each gradient's max|g|
+# (bitwise equal on one H100, cuDNN deterministic)
+REMAT_GRAD_REL = 1e-6
+REMAT_1280_IMG = 1280  # where remat matters; it fits without too (68.70 GiB)
+
+
+def loader_split_ms(ds, items):
+    """One thread's host ms a frame of the augmented loader, by part: decode and
+    resize of the mosaic's frames, the canvas (the rest of the item: labels,
+    flips), the warp and HSV."""
+    from skyeye_tpu_torch.data import dataset as port_dataset
+
+    parts = {"decode_resize": 0.0, "warp": 0.0, "hsv": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            parts[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    draws = [ds.draw(i) for i in items]
+    t0 = time.perf_counter()
+    with mock.patch.object(ds, "_load_image_raw", timed("decode_resize", ds._load_image_raw)), \
+            mock.patch.object(port_dataset, "warp_with_matrix",
+                              timed("warp", port_dataset.warp_with_matrix)), \
+            mock.patch.object(port_dataset, "apply_hsv", timed("hsv", port_dataset.apply_hsv)):
+        for d in draws:
+            ds.render(d)
+    total = (time.perf_counter() - t0) * 1e3
+    out = {k: v / len(items) for k, v in parts.items()}
+    out["mosaic"] = total / len(items) - sum(out.values())
+    out["total"] = total / len(items)
+    return out
+
+
+def phase_train_host_aug(torch, gpu_line, workdir):
+    """``cli.train`` as JAX trains by default: the loader augments on the host
+    (mosaic, warp, HSV, flips), skyeye_s at full width, 640 px, batch 16."""
+    from pathlib import Path
+
+    from skyeye_tpu_torch.cli import train as port_train
+    from skyeye_tpu_torch.cli import validate as port_validate
+    from skyeye_tpu_torch.config import DEFAULT_HYP
+    from skyeye_tpu_torch.data.dataset import AerialDataset, create_dataloader
+    from skyeye_tpu_torch.losses import ComputeLoss
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.ops import nms_kernel
+    from skyeye_tpu_torch.train import RuntimeOptimizer, create_train_state, make_train_step
+    from skyeye_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    t_phase = time.perf_counter()
+    root = Path(workdir)
+    weights = root / "skyeye_s.pt"
+    data = {"path": str(root), "train": "images/val", "val": "images/val",
+            "nc": len(DRONE_NAMES), "names": DRONE_NAMES}
+    split = str(root / "images" / "val")
+
+    # -- the loader's ms a frame on one thread, by part (no other loader running)
+    ds = AerialDataset(split, img_size=TRAIN_IMG, batch_size=TRAIN_BATCH, augment=True,
+                       hyp=DEFAULT_HYP, seed=0)
+    split_ms = loader_split_ms(ds, list(range(0, len(ds), 4)))
+
+    # -- the loader's first batch at 1 and at 4 workers: byte for byte the same
+    first, loader_s = {}, {}
+    for workers in (1, HOST_AUG_WORKERS):
+        loader, _ = create_dataloader(split, img_size=TRAIN_IMG, batch_size=TRAIN_BATCH,
+                                      stride=32, augment=True, hyp=DEFAULT_HYP,
+                                      workers=workers, seed=0, shuffle=True)
+        t0 = time.perf_counter()
+        batches = iter(loader)
+        first[workers] = next(batches)
+        loader_s[workers] = time.perf_counter() - t0
+        batches.close()  # the producer stops: only the items already running finish
+    for key in ("images", "targets", "mask", "indices"):
+        if not np.array_equal(first[1][key], first[HOST_AUG_WORKERS][key]):
+            fail(f"the augmented loader's first batch differs in {key} between 1 and "
+                 f"{HOST_AUG_WORKERS} workers")
+
+    # -- the run
+    nms_kernel.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps, vals, k1_inputs = train_run(torch, port_train, port_validate, lambda: port_train.train(
+        cfg="skyeye_s", data=data, epochs=HOST_AUG_EPOCHS, batch_size=TRAIN_BATCH,
+        img_size=TRAIN_IMG, weights=str(weights), workers=HOST_AUG_WORKERS,
+        project=str(root / "runs_host_aug"), name="exp", seed=0, device="cuda"))
+    train_s = time.perf_counter() - t0
+    launches = dict(nms_kernel.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches["batched_greedy_nms"] == 0:
+        fail("host-augmented training's validation never launched batched_greedy_nms")
+    kept = hold_k1(torch, nms_kernel, k1_inputs, "train_host_aug")
+    boxes, scores, iou, md = k1_inputs[0]
+    k1 = dict(shape=list(scores.shape),
+              ms=cuda_ms(lambda: nms_kernel.batched_greedy_nms(boxes, scores, iou, md), 30))
+    del boxes, scores, k1_inputs
+
+    n_micro = HOST_AUG_EPOCHS * 3
+    losses = [float(v) for _, v in steps]
+    if len(steps) != n_micro or not all(np.isfinite(losses)):
+        fail(f"host-augmented training ran {len(steps)} micro-steps (want {n_micro}), "
+             f"losses {losses}")
+    run_dir = root / "runs_host_aug" / "exp"
+    with open(run_dir / "results.csv") as f:
+        rows = [r.strip().split(",") for r in f.readlines()[1:]]
+    if len(rows) != HOST_AUG_EPOCHS or not all(np.isfinite([float(v) for v in r]).all()
+                                               for r in rows):
+        fail(f"results.csv rows: {rows}")
+    epoch_s, images_s = [], []
+    for e in range(HOST_AUG_EPOCHS):
+        start = steps[3 * e][0]
+        epoch_s.append({"train": vals[e][0] - start, "with_validation": vals[e][1] - start})
+        images_s.append(3 * TRAIN_BATCH / (vals[e][0] - start))
+    last = run_dir / "weights" / "last.pt"
+    (mp, mr, map50, map_, *_), _, _ = port_validate.validate(
+        data, weights=str(last), batch_size=TRAIN_BATCH, img_size=TRAIN_IMG,
+        project=str(root / "runs_val_host_aug"), plots=False, device="cuda")
+    last_val = {"validate": [mp, mr, map50, map_], "results_csv": [float(v) for v in rows[-1][4:8]]}
+    if not np.allclose(last_val["validate"], last_val["results_csv"], rtol=1e-3, atol=0):
+        fail(f"last.pt validates to {last_val['validate']}, its epoch's row says "
+             f"{last_val['results_csv']}")
+
+    # -- the card's micro-step on the first host-augmented batch, split as train splits it
+    model = create_detector("skyeye_s", num_classes=len(DRONE_NAMES), device="cuda")
+    model.load_state_dict(load_torch_checkpoint(weights)[0], strict=True)
+    opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=TRAIN_BATCH)
+    marks = []
+    step = make_train_step(model, ComputeLoss(model.config.anchors, model.config.nc), opt,
+                           on_stage=lambda name: marks.append((name, cuda_event(torch))))
+    state = create_train_state(model, opt)
+    batch = {k: torch.from_numpy(np.asarray(first[1][k])).cuda()
+             for k in ("images", "targets", "mask")}
+    split = []
+    for i in range(6):
+        marks.clear()
+        marks.append(("start", cuda_event(torch)))
+        _, m = step(state, dict(batch, n_valid=TRAIN_BATCH,
+                                opt_hyperparams={"lr": 0.0, "bias_lr": 0.0, "momentum": 0.937}))
+        torch.cuda.synchronize()
+        if i == 0 and abs(float(m["loss"]) - losses[0]) > 1e-6 * abs(losses[0]):
+            fail(f"the first batch's micro-step gives loss {float(m['loss'])}, the run "
+                 f"gave {losses[0]}")
+        if i:
+            split.append({n: marks[j - 1][1].elapsed_time(marks[j][1])
+                          for j, (n, _) in enumerate(marks) if j})
+    step_split = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    del state, step, opt, model, batch
+    emit("train_host_aug", model="skyeye_s", nc=len(DRONE_NAMES), img_size=TRAIN_IMG,
+         batch=TRAIN_BATCH, epochs=HOST_AUG_EPOCHS, workers=HOST_AUG_WORKERS,
+         frames=len(ds), dtype="float32", tf32=False, device_aug=False, hyp="DEFAULT_HYP",
+         first_batch_equal_at_workers=[1, HOST_AUG_WORKERS],
+         first_batch_s={str(k): v for k, v in loader_s.items()},
+         micro_step_losses=losses, results_csv=rows, train_s=train_s, epoch_s=epoch_s,
+         images_per_s=images_s, loader_ms_per_frame_one_thread=split_ms,
+         step_split_ms=step_split, device_ms_per_frame=sum(step_split.values()) / TRAIN_BATCH,
+         peak_memory_gib=peak_gib, launches=launches,
+         k1_inputs={"count": len(kept), "shapes": sorted({tuple(k["shape"]) for k in kept})},
+         k1_timed=k1, last_pt_validation=last_val, card=gpu_line,
+         phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="train_host_aug",
+                 launches=launches["batched_greedy_nms"])]
+
+
+def remat_micro_step(torch, attention_kernel, level, x, targets, mask, timed_runs=2):
+    """Micro-steps of skyeye_l_transformer at ``level`` from the seed-0 weights:
+    the first one's loss, gradients, buffers, K4 launches, ms and peak GiB, and
+    the median ms of ``timed_runs`` more."""
+    from skyeye_tpu_torch.losses import ComputeLoss
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.tools.train_grad_noise import loss_and_grads
+
+    model = create_detector("skyeye_l_transformer", num_classes=len(DRONE_NAMES),
+                            device="cuda", seed=0, remat=level)
+    loss_fn = ComputeLoss(model.config.anchors, model.config.nc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention_kernel.reset_launch_counts()
+    start = cuda_event(torch)
+    loss, _, grads = loss_and_grads(model, loss_fn, x, targets, mask)
+    end = cuda_event(torch)
+    end.synchronize()
+    out = dict(loss=loss, grads=grads,
+               buffers={k: v.clone() for k, v in model.named_buffers()},
+               k4=attention_kernel.LAUNCHES["flash_attention"], first_ms=start.elapsed_time(end),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    times = []
+    for _ in range(timed_runs):
+        start = cuda_event(torch)
+        loss_and_grads(model, loss_fn, x, targets, mask)
+        end = cuda_event(torch)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out["ms"] = float(np.median(times)) if times else out["first_ms"]
+    del model
+    return out
+
+
+def remat_against_none(torch, runs, ref, levels):
+    """Each level's first micro-step against ``ref`` (no remat): bitwise, else the
+    largest gap over max|g| of a gradient or a buffer, held under REMAT_GRAD_REL."""
+    from skyeye_tpu_torch.tools.train_grad_noise import error_summary, grad_errors
+
+    compared = {}
+    for level in levels:
+        r = runs[level]
+        bitwise = (r["loss"] == ref["loss"]
+                   and all(torch.equal(r["grads"][k], g) for k, g in ref["grads"].items())
+                   and all(torch.equal(r["buffers"][k], b) for k, b in ref["buffers"].items()))
+        errs = grad_errors(r["grads"], ref["grads"])
+        buf_errs = grad_errors(r["buffers"], {k: v.double() for k, v in ref["buffers"].items()})
+        compared[level] = {"bitwise_equal": bitwise, "loss": [r["loss"], ref["loss"]],
+                           "grad_gap_of_max": error_summary(errs),
+                           "buffer_gap_of_max": max(buf_errs.values())}
+        worst = max(max(errs.values()), max(buf_errs.values()))
+        if abs(r["loss"] - ref["loss"]) > REMAT_GRAD_REL * abs(ref["loss"]) or \
+                worst > REMAT_GRAD_REL:
+            fail(f"remat {level!r} against none: loss {r['loss']} vs {ref['loss']}, worst "
+                 f"gradient or buffer gap {worst} of max (limit {REMAT_GRAD_REL})")
+    return compared
+
+
+def phase_train_remat(torch, gpu_line, workdir):
+    """skyeye_l_transformer at full width and depth, batch 16: one micro-step
+    from the same weights and batch at remat "", "block" and "stage" at 640 px,
+    then "" and "stage" at 1280 px (which fits without remat: 68.70 GiB,
+    ``tools/remat_memory.py``), each then timed over 2 more."""
+    from pathlib import Path
+
+    from skyeye_tpu_torch.ops import attention_kernel
+
+    t_phase = time.perf_counter()
+    data = {"path": str(Path(workdir)), "train": "images/val"}
+    results, k4_launches = {}, {}
+    for img, levels in ((TRAIN_IMG, ("", "block", "stage", "again")),
+                        (REMAT_1280_IMG, ("", "stage"))):
+        batch, _ = first_batch(torch, data, img)
+        x = batch["images"].float() / 255.0
+        runs = {}
+        for level in levels:  # "again": no remat a second time, the card's own spread
+            runs[level] = remat_micro_step(torch, attention_kernel,
+                                           "" if level == "again" else level, x,
+                                           batch["targets"], batch["mask"])
+            k4_launches[f"{img}:{level or 'none'}"] = runs[level]["k4"]
+            torch.cuda.empty_cache()
+        results[img] = {
+            "levels": {lv or "none": {k: runs[lv][k] for k in ("ms", "first_ms", "peak_gib")}
+                       for lv in levels if lv != "again"},
+            "against_no_remat": remat_against_none(torch, runs, runs[""], levels[1:])}
+        del runs, batch, x
+        torch.cuda.empty_cache()
+    if any(n != 1 for n in k4_launches.values()):
+        fail(f"K4 launches per forward by level: {k4_launches} (want 1 each)")
+    emit("train_remat", model="skyeye_l_transformer", nc=len(DRONE_NAMES), batch=TRAIN_BATCH,
+         dtype="float32", tf32=False, by_img_size=results,
+         k4_launches_per_forward=k4_launches, card=gpu_line,
+         phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return [dict(name="flash_attention", path="train_remat",
+                 launches=sum(k4_launches.values()))]
+
+
+def phase_evolve(torch, gpu_line, workdir):
+    """``cli.train(evolve=2, epochs=1)`` on skyeye_s as in train_host_aug."""
+    from pathlib import Path
+
+    from skyeye_tpu_torch.cli import train as port_train
+    from skyeye_tpu_torch.cli import validate as port_validate
+    from skyeye_tpu_torch.config import DEFAULT_HYP, load_hyp
+    from skyeye_tpu_torch.ops import nms_kernel
+    from skyeye_tpu_torch.train.evolve import EVOLVE_META, load_evolve_results, mutate_hyp
+
+    t_phase = time.perf_counter()
+    root = Path(workdir)
+    data = {"path": str(root), "train": "images/val", "val": "images/val",
+            "nc": len(DRONE_NAMES), "names": DRONE_NAMES}
+    nms_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps, vals, k1_inputs = train_run(torch, port_train, port_validate, lambda: port_train.train(
+        cfg="skyeye_s", data=data, epochs=1, batch_size=TRAIN_BATCH, img_size=TRAIN_IMG,
+        weights=str(root / "skyeye_s.pt"), workers=HOST_AUG_WORKERS,
+        project=str(root / "runs_evolve"), seed=0, device="cuda", evolve=2))
+    evolve_s = time.perf_counter() - t0
+    launches = dict(nms_kernel.LAUNCHES)
+    if launches["batched_greedy_nms"] == 0:
+        fail("evolve's validations never launched batched_greedy_nms")
+    hold_k1(torch, nms_kernel, k1_inputs, "evolve")
+    del k1_inputs
+    evolve_dir = root / "runs_evolve" / "evolve"
+    header, rows = load_evolve_results(evolve_dir / "evolve.csv")
+    keys = [k for k in EVOLVE_META if k in DEFAULT_HYP]
+    if header != ["fitness"] + keys or len(rows) != 2:
+        fail(f"evolve.csv: header {header}, {len(rows)} rows (want 2)")
+    if rows[0][1:] != [DEFAULT_HYP[k] for k in keys]:
+        fail("generation 1 did not train the base hyp")
+    gen2 = mutate_hyp(dict(DEFAULT_HYP), np.random.default_rng(0))
+    if rows[1][1:] != [gen2[k] for k in keys]:
+        fail(f"generation 2's hyp {rows[1][1:]} is not mutate_hyp from the seed's generator")
+    best = max(rows, key=lambda r: r[0])
+    evolved = load_hyp(evolve_dir / "hyp_evolved.yaml")
+    if [evolved[k] for k in keys] != best[1:]:
+        fail("hyp_evolved.yaml does not read back to the best row's hyp")
+    if len(steps) != 6 or not all(np.isfinite([float(v) for _, v in steps])):
+        fail(f"evolve ran {len(steps)} micro-steps (want 6)")
+    emit("evolve", model="skyeye_s", nc=len(DRONE_NAMES), img_size=TRAIN_IMG,
+         batch=TRAIN_BATCH, generations=2, epochs=1, workers=HOST_AUG_WORKERS,
+         fitness=[r[0] for r in rows], gen2_mutated={k: gen2[k] for k in keys
+                                                     if gen2[k] != DEFAULT_HYP[k]},
+         evolve_s=evolve_s, generation_s=[vals[g][1] - steps[3 * g][0] for g in range(2)],
+         launches=launches, card=gpu_line, phase_s=time.perf_counter() - t_phase)
+    return [dict(name="batched_greedy_nms", path="evolve",
+                 launches=launches["batched_greedy_nms"])]
+
+
 def merge_by_kernel(entries):
     """One entry per kernel: the first one's numbers, ``launches`` summed over
     every path's entry and ``launches_by_path`` listing them."""
@@ -2186,6 +2540,9 @@ def main() -> int:
         summary += phase_detect(torch, gpu_line, workdir)
         summary += phase_train(torch, gpu_line, workdir)
         summary += phase_train_transformer(torch, gpu_line, workdir)
+        summary += phase_train_host_aug(torch, gpu_line, workdir)
+        summary += phase_train_remat(torch, gpu_line, workdir)
+        summary += phase_evolve(torch, gpu_line, workdir)
     summary = merge_by_kernel(summary)
     for s in summary:
         kid, replaces, source = KERNELS[s["name"]]

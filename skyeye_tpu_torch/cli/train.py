@@ -1,30 +1,35 @@
 """Training: the epoch loop with per-epoch validation on EMA weights,
-checkpoints, resume and early stopping.
+checkpoints, resume, early stopping and hyperparameter evolution.
 
-Port of ``skyeye_tpu/cli/train.py`` as JAX runs it with ``--device-aug``: the
-loader only letterboxes, and mosaic, affine, HSV and flips run on the card
-inside the step (``data/device_aug.py``); ``ComputeLoss`` with YOLOv5
-targets; SGD-nesterov or Adam in two groups (bias, other) with a decay mask,
-lr, bias lr and momentum set each optimizer step from ``host_schedule``;
-gradients accumulated to the nominal batch 64; EMA; after each epoch,
-validation on the EMA weights (K1 in its NMS) with the validation loss;
-``results.csv`` with JAX's header, ``last.pt``/``best.pt`` (their weights
-the EMA's that were validated, so the facade and ``validate`` serve them as
+Port of ``skyeye_tpu/cli/train.py``. By default, as in JAX, the loader
+augments on the host (``augment=True``: mosaic, mixup, the affine or
+perspective warp, HSV and flips, ``data/augment.py``); with ``device_aug``
+the loader only letterboxes and those run on the card inside the step
+(``data/device_aug.py``). ``ComputeLoss`` with YOLOv5 targets;
+SGD-nesterov or Adam in two groups (bias, other) with a decay mask, lr, bias
+lr and momentum set each optimizer step from ``host_schedule``; gradients
+accumulated to the nominal batch 64; EMA; after each epoch, validation on the
+EMA weights (K1 in its NMS) with the validation loss; ``results.csv`` with
+JAX's header, ``last.pt``/``best.pt`` (their weights the EMA's that were
+validated, so the facade and ``validate`` serve them as
 they are), resume and early stopping.
 
 The step runs on the card: batches come through the pinned prefetch ring
 (``data/prefetch.py``), the uint8 frames are normalised there, and nothing
-waits for the host until an epoch ends.
+waits for the host until an epoch ends. ``remat`` ("block" or "stage")
+recomputes activations in the backward pass (``models/blocks.py``). ``evolve=N``
+runs N generations of short trainings over the same arguments
+(``train/evolve.py``): ``<project>/evolve/evolve.csv`` and
+``hyp_evolved.yaml``.
 
-Not ported, each raising NotImplementedError with its ROADMAP item:
-``device_aug=False`` (host augmentation through cv2), ``evolve``, ``remat``,
-``fsdp`` and ``spatial_shards > 1`` (multi-device). ``packed_stem`` is a TPU
+Not ported: ``fsdp`` and ``spatial_shards > 1`` (multi-device) raise
+NotImplementedError with their ROADMAP item. ``packed_stem`` is a TPU
 lane remap of the stem that JAX calls numerically equivalent: the port trains
 the canonical stem for either value (ROADMAP Queue 1 item 9). The figures of
 ``plot_results`` are not drawn (a warning; the plotting slice, Queue 1 item 15).
 
 Usage: python -m skyeye_tpu_torch.cli.train --cfg skyeye_s --data drone.yaml \\
-           --epochs 100 --batch-size 16 --device-aug
+           --epochs 100 --batch-size 16 [--device-aug] [--remat stage] [--evolve 10]
 """
 from __future__ import annotations
 
@@ -107,14 +112,33 @@ def train(
 
     ``packed_stem`` is accepted and changes nothing: JAX's packed stem is a lane
     layout for the TPU, numerically the canonical stem with the same weights,
-    and the port trains the canonical stem (ROADMAP Queue 1 item 9)."""
-    if not device_aug:
-        raise _not_ported("host augmentation (device_aug=False: mosaic, perspective and HSV "
-                          "through cv2); pass device_aug=True (--device-aug)", "item 10")
-    if evolve:
-        raise _not_ported("hyperparameter evolution (evolve)", "item 11")
-    if remat:
-        raise _not_ported("rematerialisation (remat, as torch.utils.checkpoint)", "item 12")
+    and the port trains the canonical stem (ROADMAP Queue 1 item 9).
+
+    With ``evolve`` it returns (None, ``<project>/evolve``)."""
+    if evolve:  # short trainings, the fittest hyp kept (JAX's --evolve)
+        from ..train.evolve import evolve as run_evolve
+
+        evolve_dir = Path(project) / "evolve"
+        kwargs = dict(
+            cfg=cfg, data=data, epochs=epochs, batch_size=batch_size,
+            img_size=img_size, weights=weights, adam=adam, linear_lr=linear_lr,
+            max_labels=max_labels, workers=workers, project=project,
+            patience=patience, seed=seed, cache_images=cache_images, half=half,
+            spatial_shards=spatial_shards, device_aug=device_aug,
+            accumulate=accumulate, packed_stem=packed_stem, device=device,
+        )
+
+        def short_train(cand_hyp):
+            path = evolve_dir / "hyp_candidate.yaml"
+            path.write_text(dump_flat_yaml(cand_hyp))
+            res, _ = train(hyp=str(path), name="evolve_gen", exist_ok=True, **kwargs)
+            return 0.1 * res[2] + 0.9 * res[3]
+
+        evolve_dir.mkdir(parents=True, exist_ok=True)
+        best = run_evolve(short_train, load_hyp(hyp), generations=evolve,
+                          save_dir=evolve_dir, seed=seed)
+        (evolve_dir / "hyp_evolved.yaml").write_text(dump_flat_yaml(best))
+        return None, evolve_dir
     if fsdp or spatial_shards > 1:
         raise _not_ported("multi-device training (fsdp, spatial_shards > 1)", "item 8")
     from ..data.dataset import create_dataloader
@@ -145,7 +169,8 @@ def train(
     config = load_model_config(cfg)
     if ref_exact_cross_attn is not None:
         config = dataclasses.replace(config, ref_exact_cross_attn=ref_exact_cross_attn)
-    model = create_detector(config, num_classes=nc, dtype=dtype, device=dev, seed=seed)
+    model = create_detector(config, num_classes=nc, dtype=dtype, device=dev, seed=seed,
+                            remat=remat)
     config = model.config
     stride = int(max(config.strides))
     img_size = check_img_size(img_size, stride)
@@ -159,10 +184,11 @@ def train(
         model.load_state_dict(merged, strict=True)
         LOGGER.info("transferred %d/%d tensors from %s", n_l, n_t, weights)
 
-    # -- data: the loader only letterboxes; augmentation runs in the step
+    # -- data: the loader augments on the host, or with device_aug only letterboxes
+    # and augmentation runs in the step
     train_loader, train_ds = create_dataloader(
         data_cfg.train, img_size=img_size, batch_size=batch_size, stride=stride,
-        augment=False, hyp=hyp_dict, workers=workers, max_labels=max_labels,
+        augment=not device_aug, hyp=hyp_dict, workers=workers, max_labels=max_labels,
         cache_images=cache_images, seed=seed, shuffle=True,
     )
     steps_per_epoch = len(train_loader)
@@ -180,7 +206,8 @@ def train(
                 LOGGER.info("refitting anchors (best-possible recall %.3f < 0.98)", bpr)
                 config = dataclasses.replace(
                     config, anchors=fit_anchors_for_dataset(train_ds, img_size, config.strides))
-                model = create_detector(config, dtype=dtype, device=dev, seed=seed)
+                model = create_detector(config, dtype=dtype, device=dev, seed=seed,
+                                        remat=remat)
     LOGGER.info("train: %d images, %d steps/epoch", len(train_ds), steps_per_epoch)
 
     # -- optimizer + schedules, in optimizer steps
@@ -211,8 +238,8 @@ def train(
                 train_loader.rng.shuffle(np.arange(len(train_ds)))
             LOGGER.info("resumed from %s at epoch %d", last, start_epoch)
 
-    aug_fn = partial(augment_batch_device, hyp=hyp_dict,
-                     use_mosaic=hyp_dict.get("mosaic", 1.0) > 0)
+    aug_fn = (partial(augment_batch_device, hyp=hyp_dict,
+                      use_mosaic=hyp_dict.get("mosaic", 1.0) > 0) if device_aug else None)
     step_fn = make_train_step(model, loss_fn, tx, device_augment=aug_fn)
     eval_model = copy.deepcopy(model).eval()  # validation loads the EMA weights into it
     stopper = EarlyStopping(patience=patience)
@@ -230,8 +257,9 @@ def train(
         losses = []
         for batch in device_prefetch(train_loader, size=2, device=dev,
                                      keys=("images", "targets", "mask")):
-            batch["aug_generator"] = torch.Generator(device=dev).manual_seed(
-                seed * 1_000_003 + py_step)
+            if aug_fn is not None:
+                batch["aug_generator"] = torch.Generator(device=dev).manual_seed(
+                    seed * 1_000_003 + py_step)
             batch["opt_hyperparams"] = lr_sched(py_step // accumulate)
             batch["n_valid"] = int(batch.get("n_valid", batch["images"].shape[0]))
             state, metrics = step_fn(state, batch)
@@ -303,19 +331,20 @@ def parse_opt(argv=None):
     p.add_argument("--fsdp", action="store_true", help="not ported (multi-device)")
     p.add_argument("--debug-nans", action="store_true",
                    help="stop at the first NaN (torch.autograd.set_detect_anomaly)")
-    p.add_argument("--evolve", type=int, nargs="?", const=10, default=0, help="not ported")
+    p.add_argument("--evolve", type=int, nargs="?", const=10, default=0,
+                   help="generations of hyperparameter evolution (short trainings)")
     p.add_argument("--autoanchor", action="store_true",
                    help="check and refit anchors to the dataset (kmeans)")
     p.add_argument("--accumulate", type=int, default=0,
                    help="gradient accumulation steps (0 = auto to nominal batch 64)")
     p.add_argument("--device-aug", action="store_true",
                    help="mosaic/HSV/affine augmentation on the card inside the step "
-                        "(the only augmentation the port has)")
+                        "(default: on the host, in the loader)")
     p.add_argument("--max-labels", type=int, default=300)
     p.add_argument("--no-packed-stem", dest="packed_stem", action="store_false",
                    help="accepted; the port trains the canonical stem either way")
     p.add_argument("--remat", nargs="?", const="stage", default="", choices=("block", "stage"),
-                   help="not ported")
+                   help="recompute activations in the backward pass (training memory)")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     return p.parse_args(argv)
 

@@ -1,7 +1,8 @@
-"""YOLO-format dataset with a label cache and rect batches, and a threaded
-batch loader, for validation and for training with augmentation on the device.
+"""YOLO-format dataset with a label cache, rect batches and host augmentation
+(mosaic, mixup, the affine/perspective warp, HSV, flips), and a threaded batch
+loader.
 
-Port of ``skyeye_tpu/data/dataset.py``, the paths without host augmentation:
+Port of ``skyeye_tpu/data/dataset.py``:
 
   * image discovery from a dir, a glob or a list file (``find_images``) and the
     images/ -> labels/ mapping (``img2label_paths``);
@@ -10,10 +11,15 @@ Port of ``skyeye_tpu/data/dataset.py``, the paths without host augmentation:
   * the label cache at ``<labels dir>.cache``, keyed by a hash of sizes and
     paths; the port writes JSON under its own version string, so neither
     package reads the other's cache: each rebuilds it;
-  * rect batches by aspect ratio, bucketed to ``shape_buckets`` shapes;
+  * rect batches by aspect ratio, bucketed to ``shape_buckets`` shapes (not
+    with ``augment``, as in JAX);
   * decode (``imageio.imread``) and the pre-resize of the longest side to
-    ``img_size`` (``resize_area`` when shrinking, else ``resize_linear``), then
-    the host ``letterbox``;
+    ``img_size`` (``resize_linear`` when augmenting or enlarging, else
+    ``resize_area``), then the host ``letterbox``;
+  * with ``augment``, JAX's item: a 4-image mosaic with probability
+    ``hyp["mosaic"]`` (then mixup of a second mosaic with probability
+    ``hyp["mixup"]``), else the letterbox and the warp; then HSV and the flips
+    (``data/augment.py``, OpenCV's pixels without OpenCV);
   * ``BatchLoader``: fixed-shape batch dicts {images (B, H, W, 3) uint8 RGB,
     targets (B, M, 6), mask (B, M), n_valid, indices}, assembled by a thread
     pool ahead of the consumer; a short last batch is padded by repeating its
@@ -21,10 +27,16 @@ Port of ``skyeye_tpu/data/dataset.py``, the paths without host augmentation:
     order is JAX's (``np.random.default_rng(seed)`` shuffles once an epoch);
     ``InfiniteBatchLoader`` runs epoch after epoch.
 
-Training augments on the device (``data/device_aug.py``, ``--device-aug``), so
-its loader only letterboxes. Host augmentation (mosaic, perspective and HSV
-through cv2) is not ported: ``augment=True`` raises. JAX's native C++ decode
-path for square batches is not ported (ROADMAP.md); this is JAX's Python path.
+An item is drawn, then rendered: ``AerialDataset.draw`` takes every random
+number the item needs (they never depend on pixels) from the dataset's
+generators in JAX's order, and ``render`` does the pixel work from them.
+``dataset[i]`` is ``render(draw(i))``. The loader draws the items in order
+on one thread and renders them on its workers, so its batches are the same
+for any number of workers, and equal JAX's with one worker (JAX's workers
+share one generator, so with more than one its draws follow thread timing).
+
+JAX's native C++ decode path for square batches is not ported (ROADMAP.md);
+this is JAX's Python path.
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ import json
 import math
 import os
 import queue
+import random
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -41,16 +54,18 @@ from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..config import DEFAULT_HYP
 from ..ops.letterbox import letterbox
 from ..utils.general import LOGGER
+from .augment import (
+    apply_hsv, blend, build_affine_matrix, flip_lr, flip_ud, hsv_gains, warp_with_matrix,
+    xywhn_to_xyxy, xyxy_to_xywhn,
+)
 from .imageio import image_size, imread, resize_area, resize_linear
 
 IMG_FORMATS = ("bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp")
 VID_FORMATS = ("asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv")
 CACHE_VERSION = "skyeye_tpu_torch-0.1"
-AUGMENT_NOT_PORTED = ("host augmentation (mosaic, perspective and HSV through cv2) is not "
-                      "ported (ROADMAP.md, Queue 1 item 10); train with augmentation on the "
-                      "device instead (cli.train's device_aug=True, --device-aug)")
 
 
 def img2label_paths(img_paths: Sequence[str]) -> List[str]:
@@ -126,7 +141,7 @@ def verify_image_label(args) -> Tuple[Optional[str], Optional[np.ndarray],
 
 
 class AerialDataset:
-    """Map-style YOLO dataset, without augmentation.
+    """Map-style YOLO dataset with caching and mosaic/mixup/affine/HSV augmentation.
 
     ``__getitem__`` returns (img (H, W, 3) uint8 BGR letterboxed, labels (n, 5)
     [cls, x, y, w, h] normalized to the output canvas).
@@ -147,14 +162,20 @@ class AerialDataset:
         seed: int = 0,
         shape_buckets: Optional[int] = None,
     ):
-        if augment:  # hyp and seed belong to augmentation
-            raise NotImplementedError(AUGMENT_NOT_PORTED)
         self.img_size = img_size
-        self.rect = rect
+        self.augment = augment
+        self.hyp = dict(DEFAULT_HYP)
+        if hyp:
+            self.hyp.update(hyp)
+        self.rect = rect and not augment
         self.stride = stride
         self.pad = pad
         self.shape_buckets = shape_buckets
         self.max_labels = max_labels
+        self.mosaic = augment and self.hyp.get("mosaic", 0) > 0
+        self.mosaic_border = (-img_size // 2, -img_size // 2)
+        self.rng = random.Random(seed)
+        self.np_rng = np.random.default_rng(seed)
 
         self.img_files = find_images(path)
         if not self.img_files:
@@ -280,9 +301,81 @@ class AerialDataset:
         h0, w0 = im.shape[:2]
         r = self.img_size / max(h0, w0)
         if r != 1:
-            resize = resize_linear if r > 1 else resize_area
+            resize = resize_linear if (self.augment or r > 1) else resize_area
             im = resize(im, (int(w0 * r), int(h0 * r)))
         return im, (h0, w0), im.shape[:2]
+
+    # -- draws ----------------------------------------------------------------------------
+
+    def _affine_draws(self, width: int, height: int, border=(0, 0)):
+        hyp = self.hyp
+        return build_affine_matrix(width, height, hyp["degrees"], hyp["translate"],
+                                   hyp["scale"], hyp["shear"], hyp["perspective"], border,
+                                   self.rng)
+
+    def _mosaic_draws(self, index: int) -> Dict:
+        s = self.img_size
+        yc = int(self.rng.uniform(-self.mosaic_border[0], 2 * s + self.mosaic_border[0]))
+        xc = int(self.rng.uniform(-self.mosaic_border[1], 2 * s + self.mosaic_border[1]))
+        indices = [index] + [self.rng.randrange(self.n) for _ in range(3)]
+        return {"xc": xc, "yc": yc, "indices": indices,
+                "affine": self._affine_draws(2 * s, 2 * s, self.mosaic_border)}
+
+    def draw(self, index: int) -> Dict:
+        """Every random number item ``index`` takes, in JAX's order: the mosaic
+        coin; the mosaic's centre, indices and warp (or the warp of the
+        letterboxed frame); the mixup coin, index, mosaic and Beta(8, 8) ratio;
+        HSV's gains; the two flip coins. Without ``augment``, none."""
+        d: Dict = {"index": int(self.indices[index])}
+        if not self.augment:
+            return d
+        hyp = self.hyp
+        if self.mosaic and self.rng.random() < hyp["mosaic"]:
+            d["mosaic"] = self._mosaic_draws(d["index"])
+            if self.rng.random() < hyp["mixup"]:
+                d["mixup"] = self._mosaic_draws(self.rng.randrange(self.n))
+                d["mixup_ratio"] = self.np_rng.beta(8.0, 8.0)
+        else:
+            d["affine"] = self._affine_draws(self.img_size, self.img_size)
+        d["hsv"] = hsv_gains(hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"], rng=self.rng)
+        d["flipud"] = self.rng.random() < hyp["flipud"]
+        d["fliplr"] = self.rng.random() < hyp["fliplr"]
+        return d
+
+    # -- mosaic -----------------------------------------------------------------------------
+
+    def _render_mosaic(self, d: Dict) -> Tuple[np.ndarray, np.ndarray]:
+        """The 2s x 2s canvas at 114 with four frames about (xc, yc), then its warp;
+        labels xyxy pixels."""
+        s, xc, yc = self.img_size, d["xc"], d["yc"]
+        canvas = np.full((s * 2, s * 2, 3), 114, np.uint8)
+        all_labels = []
+        for i, idx in enumerate(d["indices"]):
+            img, _, (h, w) = self._load_image_raw(idx)
+            if i == 0:  # top-left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), h - (y2a - y1a), w, h
+            elif i == 1:  # top-right
+                x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+                x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
+            elif i == 2:  # bottom-left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = w - (x2a - x1a), 0, w, min(y2a - y1a, h)
+            else:  # bottom-right
+                x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+            canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+            padw, padh = x1a - x1b, y1a - y1b
+
+            labels = self.labels[idx]
+            if len(labels):
+                all_labels.append(xywhn_to_xyxy(labels, w, h, padw, padh))
+        labels4 = (np.concatenate(all_labels, 0) if all_labels
+                   else np.zeros((0, 5), np.float32))
+        np.clip(labels4[:, 1:], 0, 2 * s, out=labels4[:, 1:])
+        M, scale = d["affine"]
+        return warp_with_matrix(canvas, labels4, M, scale, self.hyp["perspective"],
+                                self.mosaic_border)
 
     # -- item -------------------------------------------------------------------------
 
@@ -290,41 +383,38 @@ class AerialDataset:
         return self.n
 
     def __getitem__(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
-        index = int(self.indices[index])
-        img, (h0, w0), (h, w) = self._load_image_raw(index)
-        shape = (self.batch_shapes[self.batch_index[index]] if self.rect
-                 else (self.img_size, self.img_size))
-        img, ratio, pad = letterbox(img, tuple(shape), auto=False, scaleup=False)
-        labels = self.labels[index].copy()
-        if len(labels):
-            labels_xyxy = np.stack(
-                [
-                    labels[:, 0],
-                    ratio[0] * w * (labels[:, 1] - labels[:, 3] / 2) + pad[0],
-                    ratio[1] * h * (labels[:, 2] - labels[:, 4] / 2) + pad[1],
-                    ratio[0] * w * (labels[:, 1] + labels[:, 3] / 2) + pad[0],
-                    ratio[1] * h * (labels[:, 2] + labels[:, 4] / 2) + pad[1],
-                ],
-                1,
-            )
-        else:
-            labels_xyxy = np.zeros((0, 5), np.float32)
-        h, w = img.shape[:2]
+        return self.render(self.draw(index))
 
-        # xyxy pixels -> xywh normalized
-        if len(labels_xyxy):
-            labels = np.stack(
-                [
-                    labels_xyxy[:, 0],
-                    (labels_xyxy[:, 1] + labels_xyxy[:, 3]) / 2 / w,
-                    (labels_xyxy[:, 2] + labels_xyxy[:, 4]) / 2 / h,
-                    (labels_xyxy[:, 3] - labels_xyxy[:, 1]) / w,
-                    (labels_xyxy[:, 4] - labels_xyxy[:, 2]) / h,
-                ],
-                1,
-            ).astype(np.float32)
+    def render(self, d: Dict) -> Tuple[np.ndarray, np.ndarray]:
+        """The item for the draws ``d`` (``draw``): its pixels and labels."""
+        if "mosaic" in d:
+            img, labels_xyxy = self._render_mosaic(d["mosaic"])
+            if "mixup" in d:
+                img2, labels2 = self._render_mosaic(d["mixup"])
+                img = blend(img, img2, d["mixup_ratio"])
+                labels_xyxy = np.concatenate([labels_xyxy, labels2], 0)
         else:
-            labels = np.zeros((0, 5), np.float32)
+            index = d["index"]
+            img, (h0, w0), (h, w) = self._load_image_raw(index)
+            shape = (self.batch_shapes[self.batch_index[index]] if self.rect
+                     else (self.img_size, self.img_size))
+            img, ratio, pad = letterbox(img, tuple(shape), auto=False, scaleup=self.augment)
+            labels = self.labels[index]
+            labels_xyxy = (xywhn_to_xyxy(labels, ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+                           if len(labels) else np.zeros((0, 5), np.float32))
+            if "affine" in d:
+                M, scale = d["affine"]
+                img, labels_xyxy = warp_with_matrix(img, labels_xyxy, M, scale,
+                                                    self.hyp["perspective"])
+        h, w = img.shape[:2]
+        labels = xyxy_to_xywhn(labels_xyxy, w, h)  # xyxy pixels -> xywh normalized
+
+        if self.augment:
+            img = apply_hsv(img, d["hsv"])
+            if d["flipud"]:
+                img, labels = flip_ud(img, labels)
+            if d["fliplr"]:
+                img, labels = flip_lr(img, labels)
         return np.ascontiguousarray(img), labels
 
     def padded_labels(self, labels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -366,8 +456,8 @@ class BatchLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
 
-    def _item(self, i: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        img, labels = self.dataset[i]
+    def _item(self, draws: Dict) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        img, labels = self.dataset.render(draws)
         if self.bgr_to_rgb:
             img = img[:, :, ::-1]
         t, m = self.dataset.padded_labels(labels)
@@ -404,33 +494,51 @@ class BatchLoader:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = object()
         err: list = []
+        closed = threading.Event()  # the consumer let go: the producer stops early
+
+        def put(item) -> bool:
+            while not closed.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def producer():
-            # a batch's frames are spread over the workers, and are submitted
-            # at most prefetch + 1 batches ahead of the queue, so the host holds
-            # a bounded number of decoded frames
+            # items are drawn here, in order, and rendered on the workers; a batch's
+            # frames are spread over the workers and submitted at most
+            # prefetch + 1 batches ahead of the queue, so the host holds a bounded
+            # number of decoded frames
+            ex = ThreadPoolExecutor(self.workers)
             try:
-                with ThreadPoolExecutor(self.workers) as ex:
-                    pending: Deque = deque()
-                    for idxs in batches:
-                        pending.append((idxs, [ex.submit(self._item, i) for i in idxs]))
-                        if len(pending) > self.prefetch:
-                            q.put(self._assemble(*pending.popleft()))
-                    while pending:
-                        q.put(self._assemble(*pending.popleft()))
+                pending: Deque = deque()
+                for idxs in batches:
+                    pending.append((idxs, [ex.submit(self._item, self.dataset.draw(i))
+                                           for i in idxs]))
+                    if len(pending) > self.prefetch and (
+                            closed.is_set() or not put(self._assemble(*pending.popleft()))):
+                        return
+                while pending:
+                    if closed.is_set() or not put(self._assemble(*pending.popleft())):
+                        return
             except Exception as e:  # raised again on the consumer's side
                 err.append(e)
             finally:
-                q.put(stop)
+                ex.shutdown(cancel_futures=closed.is_set())
+                put(stop)
 
         threading.Thread(target=producer, daemon=True).start()
-        while True:
-            item = q.get()
-            if item is stop:
-                if err:
-                    raise err[0]
-                return
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    if err:
+                        raise err[0]
+                    return
+                yield item
+        finally:
+            closed.set()
 
 
 def create_dataloader(

@@ -13,14 +13,55 @@ and returns ``dtype``, as flax's ``_normalize`` does.
 Train mode is flax's too: ``BatchNorm2d`` keeps the biased batch variance in
 its running statistics, and SPP's pools become JAX's shift-max chain, whose
 gradient splits ties as ``jnp.maximum``'s does.
+
+``remat(fn, *args)`` is the port of flax's ``nn.remat`` (JAX's training
+memory lever): ``torch.utils.checkpoint`` without reentrancy, so ``fn``'s
+activations are recomputed in the backward pass instead of kept. JAX's remat
+is functional, a recompute changes no state; here the recompute runs the
+same modules again, so ``BatchNorm2d`` reads a flag that the recompute sets
+and leaves its running statistics and ``num_batches_tracked`` alone then (it
+updated them once, in the forward). The wrapped regions hold no dropout, so
+no random draw is replayed.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+_RECOMPUTE = threading.local()  # the autograd thread that runs a recompute sets it
+
+
+def recomputing() -> bool:
+    """Whether this thread runs the backward's recompute of a ``remat`` region."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+@contextlib.contextmanager
+def _recompute_context():
+    before = recomputing()
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
+
+
+def _contexts():
+    return contextlib.nullcontext(), _recompute_context()
+
+
+def remat(fn, *args):
+    """``fn(*args)``, with its activations recomputed in the backward pass
+    instead of kept while autograd records; plainly ``fn(*args)`` otherwise."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=_contexts)
 
 
 class Conv2d(nn.Conv2d):
@@ -60,6 +101,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if recomputing():  # the same op on copies: the statistics stay as the forward left them
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, self.momentum, self.eps)
         old = self.running_var.detach().clone()
         y = super().forward(x)
         n = x.numel() // x.shape[1]

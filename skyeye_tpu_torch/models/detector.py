@@ -9,7 +9,11 @@ computes in ``dtype`` (float32 or bfloat16) with float32 parameters, so its
 attention through the fused kernel (K4); the enhanced variant adds
 ``CrossLayerAttention`` P5 -> P4, then P4 -> P3, each to its level;
 ``fused_csp=True`` is the fused-CSP serving mode (K3), built from folded
-weights by ``fused_csp_detector``.
+weights by ``fused_csp_detector``. ``remat`` recomputes activations in the
+backward pass at JAX's levels: "block" (or True) each CSP and SPP block of the
+backbone and the neck, "stage" the backbone's four stages and the whole neck;
+the head, and K4 in it, runs once per forward at every level. Parameter names
+and values do not depend on it.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from ..ops.fused_csp import fuse_csp_state
 from ..utils.checkpoint import fuse_conv_bn
 from ..utils.general import resolve_device
 from .attention import CrossLayerAttention
-from .backbone import CSPDarknet, feature_channels
+from .backbone import CSPDarknet, feature_channels, remat_level
+from .blocks import remat as recompute
 from .head import DetectionHead, decode_predictions
 from .neck import FeatureNeck
 
@@ -34,15 +39,16 @@ class SkyEyeDetectorModule(nn.Module):
     """Full detector: returns raw per-level logits (B, H, W, na, nc + 5)."""
 
     def __init__(self, config: ModelConfig, fused_csp: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: Union[bool, str] = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.remat = remat_level(remat)
         channels = feature_channels(config.base_channels, config.width_multiple)
         self.backbone = CSPDarknet(config.base_channels, config.depth_multiple,
                                    config.width_multiple, config.in_channels, fused_csp,
-                                   dtype=dtype)
-        self.neck = FeatureNeck(channels, dtype=dtype)
+                                   dtype=dtype, remat=self.remat)
+        self.neck = FeatureNeck(channels, dtype=dtype, remat=self.remat == "block")
         if config.enhanced:  # named as in flax, beside backbone, neck and head
             c3, c4, c5 = channels
             ref_exact = config.ref_exact_cross_attn
@@ -54,7 +60,11 @@ class SkyEyeDetectorModule(nn.Module):
                                   config.transformer_heads, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        p3, p4, p5 = self.neck(self.backbone(x))
+        feats = self.backbone(x)
+        if self.remat == "stage":
+            p3, p4, p5 = recompute(lambda *f: self.neck(f), *feats)
+        else:
+            p3, p4, p5 = self.neck(feats)
         if self.config.enhanced:
             p4 = self.cross_attn_p5_p4(p4, p5) + p4
             p3 = self.cross_attn_p4_p3(p3, p4) + p3
@@ -90,9 +100,10 @@ def create_detector(cfg: Union[str, dict, ModelConfig] = "skyeye_s",
                     num_classes: Optional[int] = None, anchors=None,
                     dtype: torch.dtype = torch.float32,
                     device: Union[str, torch.device] = "cuda",
-                    seed: int = 0) -> SkyEyeDetectorModule:
+                    seed: int = 0, remat: Union[bool, str] = False) -> SkyEyeDetectorModule:
     """Build the detector with weights made from ``seed``, in eval mode on ``device``,
-    computing in ``dtype`` (parameters float32).
+    computing in ``dtype`` (parameters float32), recomputing at ``remat``'s level
+    in training.
 
     ``num_classes`` / ``anchors`` override the config's values; the config's
     ``ref_exact_cross_attn`` picks the enhanced variant's attention mode."""
@@ -103,7 +114,7 @@ def create_detector(cfg: Union[str, dict, ModelConfig] = "skyeye_s",
     if anchors is not None:
         config = dataclasses.replace(config, anchors=tuple(
             tuple(tuple(float(v) for v in a) for a in level) for level in anchors))
-    module = SkyEyeDetectorModule(config, dtype=dtype)
+    module = SkyEyeDetectorModule(config, dtype=dtype, remat=remat)
     init_weights(module, torch.Generator().manual_seed(seed))
     return module.eval().to(dev)
 

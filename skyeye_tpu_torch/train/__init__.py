@@ -1,4 +1,5 @@
-"""Training of the port: state, step, optimizer groups, schedules, EMA, early stop."""
+"""Training of the port: state, step, optimizer groups, schedules, EMA, early stop
+(and ``evolve``, hyperparameter evolution, imported as its module)."""
 from .ema import EMAState, ema_init, ema_update, ema_weights
 from .optimizer import (
     NOMINAL_BATCH,

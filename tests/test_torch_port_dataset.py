@@ -204,13 +204,6 @@ def test_infinite_loader_matches_jax_across_passes(data_root, python_path):
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
-def test_augment_raises_naming_the_training_slice(data_root):
-    """Host augmentation is what training has not ported: the message names its
-    ROADMAP item and the device augmentation that training uses instead."""
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 10.*--device-aug"):
-        dataset.AerialDataset(data_root / "images" / "val", augment=True)
-
-
 def test_load_dataset_and_a_loader_error_reach_the_caller(data_root):
     ds = dataset.load_dataset(data_root / "images" / "val", img_size=96)
     assert len(ds) == len(SHAPES)

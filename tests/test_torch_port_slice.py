@@ -192,6 +192,7 @@ def test_main_path_imports_no_jax():
         "import skyeye_tpu_torch.data.device_aug, skyeye_tpu_torch.utils.autoanchor\n"
         "import skyeye_tpu_torch.cli.detect, skyeye_tpu_torch.data.loaders\n"
         "import skyeye_tpu_torch.data.jpeg, skyeye_tpu_torch.utils.visualization\n"
+        "import skyeye_tpu_torch.data.augment, skyeye_tpu_torch.train.evolve\n"
         "import chip_smoke\n"
         "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'pandas')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"

@@ -16,7 +16,9 @@ which is why the comparison stops at two optimizer steps); P, R and the mAPs
 within 1e-3. Also: ``last.pt``/``best.pt`` hold the EMA weights, read back by
 ``SkyEyeDetector`` and by ``validate`` to their epoch's row of ``results.csv``; a
 run stopped after one epoch and resumed gives the uninterrupted run's rows;
-the options that are not ported raise, naming their ROADMAP item.
+the multi-device options, which are not ported, raise, naming their ROADMAP
+item. Host augmentation (JAX's default), ``remat`` and ``evolve`` are held
+against JAX in ``test_torch_port_{augment,remat,evolve}.py``.
 """
 import csv
 import dataclasses
@@ -207,7 +209,6 @@ def test_a_resumed_run_gives_the_uninterrupted_rows(setup, tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("device_aug", False, "item 10"), ("evolve", 3, "item 11"), ("remat", "stage", "item 12"),
     ("fsdp", True, "item 8"), ("spatial_shards", 2, "item 8"),
 ])
 def test_options_that_are_not_ported_raise(option, value, item, tmp_path):
