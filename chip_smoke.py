@@ -78,6 +78,37 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            a request (the tiles' NMS at B 16, k 1024; the merge at B 2, k 2400),
            each launch's input held index for index against the plain NMS, and
            K1 timed on the merge's input
+  serve_int8
+           skyeye_s at full width, seeded weights, quantized by the facade's
+           ``quantize_int8`` (BN folded, 16 RGB frames calibrated at 1280 px,
+           the int8 neck) in bf16, then in float32 with TF32 off; the same 3
+           requests (K1's launches and the int8 GEMMs counted over just these);
+           K1 index for index against the plain NMS on the inputs the requests
+           gave it; every int8 conv's int32 product on the inputs one batch
+           gives it held bit for bit against ``int8_conv_plain``; the head
+           logits against the float model on the same folded weights
+           (correlation above 0.995 a level, max|d| printed); the model's ms
+           against the float model's, its device time split by
+           ``torch.profiler`` (``_int_mm``, the im2col windows), one request
+           split into its stages
+  serve_int8_early
+           ``bench.py``'s SKYEYE_INT8 model: skyeye_s in bf16, BN folded, the
+           packed stem (``pack_stem_variables``; held against the canonical
+           model, bf16's bound), ranges calibrated on it by ``observe_ranges``,
+           ``quantize_early_variables`` (held against the packed-stem model:
+           cosine above 0.99, mean relative error below 0.15), then the int8
+           stem (``fold_input_scale``, ``quantize_stem_variables``, uint8
+           frames; the same gates); every int8 product bit for bit; the early
+           model served by the facade for the 3 requests (K1 and the int8
+           GEMMs counted, K1 index for index); each model's ms, the device split
+  export   ``cli.export.run`` with every format (``torch_export``,
+           ``checkpoint``, ``torch``) at 1280 px on skyeye_s and
+           skyeye_l_enhanced from a ``.pt`` of seeded weights: the program,
+           loaded back, within 1e-5 x max|out| of the model written; the
+           checkpoint read back to its state; the reference ``.pt`` served by
+           ``SkyEyeDetector(weights=..., fuse=False)`` to the detections of the
+           model written (K1 once each); ``model_info`` (parameter tensors,
+           parameters, GFLOPs at 640 and 1280 px) of every shipped config
   validate ``cli.validate`` in the reference protocol (rect, pad 0.5, 8 shape
            buckets, conf 0.001, IoU 0.6, multi-label, max_nms 8192, max_det 300)
            on skyeye_s at full width, nc 10, 1280 px, batch 16, over 48 PNG frames
@@ -157,8 +188,9 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
 The serving phases reach K1 through the facade's default cut: late decode
 (``ops/late_decode.py``), per level on the raw logits, k = 1152 at conf 0.25 and
 4096 at 0.001. Then a ``{"kernels": [...]}`` line (a kernel's ``launches`` summed
-over the paths in ``launches_by_path``: K1's include ``detect``, ``train``,
-``train_host_aug`` and ``evolve``, K4's ``train_transformer`` and ``train_remat``),
+over the paths in ``launches_by_path``: K1's include the int8 phases,
+``export``, ``detect``, ``train``, ``train_host_aug`` and ``evolve``, K4's
+``train_transformer`` and ``train_remat``),
 the ``nvidia-smi`` name and
 power-limit line, and, last, ``{"ok": true, "device": {...}}``. A watchdog ends
 a hung run with a traceback and a non-zero exit. Imports torch, numpy and the
@@ -178,7 +210,7 @@ from unittest import mock
 
 import numpy as np
 
-WATCHDOG_S = 900
+WATCHDOG_S = 1100
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 outside the
 # tensor cores, TF32 and bf16 dense on the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -1339,6 +1371,330 @@ def phase_serve_tiled(torch, gpu_line):
     torch.cuda.empty_cache()
     return [dict(name="batched_greedy_nms", path="serve_tiled",
                  launches=launches["batched_greedy_nms"])]
+
+
+INT8_CALIB_FRAMES = 16  # calibration frames of the int8 phases (2 batches of 8)
+INT8_GATE_CORR = 0.995  # the int8 neck's logits against the float model (test_int8_neck.py)
+INT8_GATE_COS, INT8_GATE_REL = 0.99, 0.15  # int8 early stages (test_int8_stage.py)
+
+
+def calibration_frames(seed: int = 2):
+    """RGB frames for calibration (``quantize_int8`` takes RGB), not the served ones."""
+    return [np.ascontiguousarray(f[:, :, ::-1]) for f in frames(seed, INT8_CALIB_FRAMES)]
+
+
+def checked_int8_convs(torch, run):
+    """``run()`` with every ``int8_conv`` call's int32 product held bit for bit
+    against ``int8_conv_plain`` on the same operands: the calls, each with its
+    shapes and whether it was equal."""
+    from skyeye_tpu_torch.ops import int8_stage, int8_stem
+
+    real, calls = int8_stage.int8_conv, []
+
+    def checking(x_q, k_q, stride=1, padding=int8_stage.P0):
+        got = real(x_q, k_q, stride, padding)
+        want = int8_stage.int8_conv_plain(x_q.contiguous(), k_q, stride, padding)
+        calls.append({"x": list(x_q.shape), "k": list(k_q.shape), "stride": stride,
+                      "equal": bool(torch.equal(got, want))})
+        return got
+
+    with mock.patch.object(int8_stage, "int8_conv", checking), \
+            mock.patch.object(int8_stem, "int8_conv", checking):
+        run()
+    return calls
+
+
+def hold_int8_convs(torch, run, where: str):
+    calls = checked_int8_convs(torch, run)
+    bad = [c for c in calls if not c["equal"]]
+    if not calls or bad:
+        fail(f"{where}: {len(bad)} of {len(calls)} int8 conv products differ from the plain "
+             f"version (first: {bad[:1]})")
+    return len(calls)
+
+
+def logit_corr(torch, got, want) -> float:
+    g, w = got.double().flatten(), want.double().flatten()
+    g, w = g - g.mean(), w - w.mean()
+    return float((g * w).sum() / (g.norm() * w.norm()))
+
+
+def cos_rel(torch, got, want):
+    """test_int8_stage's measures: cosine similarity and mean relative error."""
+    g, w = got.double().flatten(), want.double().flatten()
+    cos = float((g * w).sum() / (g.norm() * w.norm() + 1e-9))
+    return cos, float((g - w).abs().mean() / (w.abs().mean() + 1e-9))
+
+
+def int8_device_split(torch, run):
+    """One ``run()`` under ``torch.profiler``: device ms in all, in ``aten::_int_mm``
+    and in the im2col windows (``int8_stage._im2col``, labelled), None where the
+    profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from skyeye_tpu_torch.ops import int8_stage
+
+    real = int8_stage._im2col
+
+    def labelled(*args):
+        with record_function("int8_im2col"):
+            return real(*args)
+
+    run()
+    torch.cuda.synchronize()
+    with mock.patch.object(int8_stage, "_im2col", labelled), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(e.self_device_time_total for e in events  # the kernels themselves
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    if total == 0:
+        return {"device_ms": None, "int_mm_ms": None, "im2col_ms": None,
+                "note": "the profiler showed no device time"}
+    int_mm = sum(e.device_time_total for e in events if e.key == "aten::_int_mm") / 1e3
+    im2col = sum(e.device_time_total for e in events if e.key == "int8_im2col") / 1e3
+    return {"device_ms": total, "int_mm_ms": int_mm, "im2col_ms": im2col,
+            "int_mm_share": int_mm / total, "im2col_share": im2col / total}
+
+
+def phase_serve_int8(torch, gpu_line):
+    """skyeye_s quantized by the facade (the int8 neck) in bf16, then in float32:
+    K1 and the int8 GEMMs on every request."""
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.models.detector import SkyEyeDetectorModule
+    from skyeye_tpu_torch.ops import int8_stage, nms_kernel
+    from skyeye_tpu_torch.utils.checkpoint import fuse_conv_bn
+
+    batch, calib = frames(seed=1), calibration_frames()
+    out, summary = {}, []
+    for name, dtype in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+        det = SkyEyeDetector("skyeye_s", img_size=1280, dtype=dtype, device="cuda", seed=0)
+        folded = SkyEyeDetectorModule(det.config, dtype=dtype)  # the float model, folded
+        folded.load_state_dict(fuse_conv_bn(det.model.state_dict()), strict=True)
+        folded = folded.eval().cuda()
+        t0 = time.perf_counter()
+        det.quantize_int8(calib)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        if not det.model.int8_neck:
+            fail("quantize_int8 left the neck in floating point")
+        det(batch)  # warm-up
+        torch.cuda.synchronize()
+        served, ms, launches = serve_timed(det, batch, (nms_kernel, int8_stage))
+        for kernel in ("batched_greedy_nms", "int8_conv"):
+            if launches[kernel] == 0:
+                fail(f"the int8 {name} serving path never launched {kernel}")
+        for r in served:
+            check_detections(r, batch[0].shape[:2], det.config.nc)
+        kept = hold_k1(torch, nms_kernel, rerun_k1_inputs(det, batch), f"serve_int8_{name}")
+
+        with torch.inference_mode():
+            x = letterboxed(torch, batch).to(dtype)  # what the facade hands its model
+            n_convs = hold_int8_convs(torch, lambda: det.model(x), f"serve_int8_{name}")
+            got, want = det.model(x), folded(x)
+            levels = []
+            for g, w in zip(got, want):
+                corr = logit_corr(torch, g, w)
+                if not bool(torch.isfinite(g).all()) or not corr > INT8_GATE_CORR:
+                    fail(f"int8 {name} logits: correlation {corr} with the float model "
+                         f"<= {INT8_GATE_CORR}")
+                levels.append({"corr": corr, "max_abs_err": float((g.float() - w.float()).abs().max()),
+                               "max_abs_logit": float(w.float().abs().max())})
+            del got, want
+            model_ms = {"int8_neck": cuda_ms(lambda: det.model(x), 5),
+                        name: cuda_ms(lambda: folded(x), 5)}
+            split = int8_device_split(torch, lambda: det.model(x))
+        out[name] = dict(calibration_s=calib_s, ms_per_request=ms,
+                         images_per_s=[len(batch) / (t / 1e3) for t in ms],
+                         detections_per_image=[[len(d) for d in r.xyxy] for r in served],
+                         launches=launches, k1_on_rerun=kept, int8_convs_checked=n_convs,
+                         logits_vs_float=levels, model_ms=model_ms, model_device_split=split,
+                         stage_ms={"0.001": stage_ms(torch, det, batch, 0.001)})
+        summary.append(dict(name="batched_greedy_nms", path=f"serve_int8_{name}",
+                            launches=launches["batched_greedy_nms"]))
+        del det, folded, x
+        torch.cuda.empty_cache()
+    emit("serve_int8", model="skyeye_s", img_size=1280, batch=len(batch), frame=[1080, 1920],
+         calibration_frames=len(calib), conf=REQUESTS, tf32=False, card=gpu_line, **out)
+    return summary
+
+
+def phase_serve_int8_early(torch, gpu_line):
+    """bench.py's SKYEYE_INT8 model (skyeye_s, bf16, packed stem, int8 stages
+    1-2) on calibrated ranges, then the int8 stem: K1 on every request."""
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.config import load_model_config
+    from skyeye_tpu_torch.models.backbone import scaled_depth
+    from skyeye_tpu_torch.models.detector import SkyEyeDetectorModule, create_detector
+    from skyeye_tpu_torch.ops import int8_stage, nms_kernel
+    from skyeye_tpu_torch.ops.calibrate import calibration_paths, observe_ranges
+    from skyeye_tpu_torch.ops.int8_stem import quantize_stem_variables
+    from skyeye_tpu_torch.ops.letterbox import letterbox, letterbox_batch
+    from skyeye_tpu_torch.ops.packed_stem import fold_input_scale, pack_stem_variables
+    from skyeye_tpu_torch.utils.checkpoint import fuse_conv_bn
+
+    bf16, cfg = torch.bfloat16, load_model_config("skyeye_s")
+    canonical = create_detector(cfg, dtype=bf16, device="cuda", seed=0)
+    folded = fuse_conv_bn(canonical.state_dict())
+    canonical.load_state_dict(folded, strict=True)
+
+    def build(state, **flags):
+        m = SkyEyeDetectorModule(cfg, dtype=bf16, **flags)
+        m.load_state_dict(state, strict=True)
+        return m.eval().cuda()
+
+    packed_state = pack_stem_variables(folded)
+    packed = build(packed_state, packed_stem=True)
+    # calibrated on the packed-stem model as quantize_int8 calibrates: host
+    # letterbox, /255, batches of 8
+    calib = np.stack([letterbox(f, (1280, 1280), auto=False)[0]
+                      for f in calibration_frames()]).astype(np.float32) / 255.0
+    nb1, nb2 = scaled_depth(3, cfg.depth_multiple), scaled_depth(9, cfg.depth_multiple)
+    t0 = time.perf_counter()
+    ranges = observe_ranges(packed, [calib[i:i + 8] for i in range(0, len(calib), 8)],
+                            paths=calibration_paths(int8_stage._range_key_map(nb1, nb2)))
+    calib_s = time.perf_counter() - t0
+    early = build(int8_stage.quantize_early_variables(packed_state, ranges, cfg),
+                  packed_stem=True, int8_early=True)
+    stem_float_state = fold_input_scale(packed_state)
+    stem_float = build(stem_float_state, packed_stem=True)
+    stem = build(quantize_stem_variables(stem_float_state), packed_stem=True, int8_stem=True)
+
+    batch = frames(seed=1)
+    gates = {}
+    with torch.inference_mode():
+        x = letterboxed(torch, batch).to(bf16)
+        rgb = torch.from_numpy(np.stack([f[:, :, ::-1] for f in batch])).cuda()
+        u8 = letterbox_batch(rgb, (1280, 1280)).round().to(torch.uint8).permute(0, 3, 1, 2)
+        ref, got_packed = canonical(x), packed(x)
+        gates["packed_vs_canonical"] = []
+        for g, w in zip(got_packed, ref):  # an exact remap computed in bf16: serve_bf16's bound
+            err, limit = float((g.float() - w.float()).abs().max()), 0.05 * float(w.float().abs().max()) + 1e-2
+            if err > limit:
+                fail(f"the packed-stem model differs from the canonical one: {err} > {limit}")
+            gates["packed_vs_canonical"].append({"max_abs_err": err, "limit": limit})
+        del ref
+        for key, model, inp, want_model, want_inp in (
+                ("int8_early_vs_packed", early, x, None, None),
+                ("int8_stem_vs_packed", stem, u8, stem_float, u8.to(bf16))):
+            want = got_packed if want_model is None else want_model(want_inp)
+            gates[key] = []
+            for g, w in zip(model(inp), want):
+                cos, rel = cos_rel(torch, g, w)
+                if not (cos > INT8_GATE_COS and rel < INT8_GATE_REL):
+                    fail(f"{key}: cosine {cos}, mean relative error {rel}")
+                gates[key].append({"cos": cos, "rel": rel, "corr": logit_corr(torch, g, w),
+                                   "max_abs_err": float((g.float() - w.float()).abs().max())})
+        n_convs = hold_int8_convs(torch, lambda: (early(x), stem(u8)), "serve_int8_early")
+        model_ms = {"canonical_bf16": cuda_ms(lambda: canonical(x), 5),
+                    "packed_stem_bf16": cuda_ms(lambda: packed(x), 5),
+                    "int8_early": cuda_ms(lambda: early(x), 5),
+                    "int8_stem": cuda_ms(lambda: stem(u8), 5)}
+        split = int8_device_split(torch, lambda: early(x))
+    del canonical, packed, stem_float, stem, got_packed, x, u8, rgb
+
+    det = SkyEyeDetector("skyeye_s", img_size=1280, dtype=bf16, device="cuda", seed=0)
+    det.model = early  # served as the facade serves: letterbox, /255, the cut, K1
+    det(batch)  # warm-up
+    torch.cuda.synchronize()
+    served, ms, launches = serve_timed(det, batch, (nms_kernel, int8_stage))
+    for kernel in ("batched_greedy_nms", "int8_conv"):
+        if launches[kernel] == 0:
+            fail(f"the int8 early serving path never launched {kernel}")
+    for r in served:
+        check_detections(r, batch[0].shape[:2], det.config.nc)
+    kept = hold_k1(torch, nms_kernel, rerun_k1_inputs(det, batch), "serve_int8_early")
+    emit("serve_int8_early", model="skyeye_s", img_size=1280, batch=len(batch),
+         frame=[1080, 1920], dtype="bfloat16", calibration_frames=len(calib),
+         calibration_s=calib_s, conf=REQUESTS, ms_per_request=ms,
+         images_per_s=[len(batch) / (t / 1e3) for t in ms], launches=launches,
+         k1_on_rerun=kept, int8_convs_checked=n_convs, gates=gates, model_ms=model_ms,
+         int8_early_device_split=split, stage_ms={"0.001": stage_ms(torch, det, batch, 0.001)},
+         card=gpu_line)
+    del det, early
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="serve_int8_early",
+                 launches=launches["batched_greedy_nms"])]
+
+
+EXPORT_IMG = 1280
+EXPORT_PROGRAM_REL = 1e-5  # the loaded program against the model: share of max|out|
+
+
+def phase_export(torch, gpu_line, workdir):
+    """``cli.export.run`` with every format on skyeye_s and skyeye_l_enhanced;
+    what each format wrote, read back; ``model_info`` of every shipped config."""
+    from pathlib import Path
+
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.cli import export as port_export
+    from skyeye_tpu_torch.config import MODEL_CONFIGS
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.ops import nms_kernel
+    from skyeye_tpu_torch.utils.checkpoint import export_torch, fuse_conv_bn, load_model
+    from skyeye_tpu_torch.utils.profiling import model_info
+
+    t_phase = time.perf_counter()
+    batch, out, summary = frames(seed=1), {}, []
+    for cfg in ("skyeye_s", "skyeye_l_enhanced"):
+        root = Path(workdir) / f"export_{cfg}"
+        root.mkdir(parents=True, exist_ok=True)
+        weights = export_torch(create_detector(cfg, device="cuda", seed=0), root / "weights.pt")
+        t0 = time.perf_counter()
+        program, checkpoint, reference = port_export.run(
+            str(weights), formats=port_export.FORMATS, img_size=EXPORT_IMG, batch=1,
+            output=str(root / "out"), device="cuda")
+        export_s = time.perf_counter() - t0
+        written = load_model(weights, device="cuda")  # the model run() wrote, BN folded
+        written.load_state_dict(fuse_conv_bn(written.state_dict()), strict=True)
+
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 1, (1, EXPORT_IMG, EXPORT_IMG, 3)).astype(np.float32)).cuda()
+        with torch.inference_mode():
+            want = port_export.DecodedForward(written, EXPORT_IMG)(x)
+            got = torch.export.load(str(program)).module()(x)
+        program_err = float((got - want).abs().max())
+        limit = EXPORT_PROGRAM_REL * float(want.abs().max())
+        if got.shape != want.shape or program_err > limit:
+            fail(f"{cfg}'s torch.export program differs from the model: {program_err} > {limit}")
+        del got, want, x
+        reread = load_model(checkpoint, device="cuda").state_dict()
+        if any(not torch.equal(reread[k], v) for k, v in written.state_dict().items()):
+            fail(f"{cfg}'s checkpoint does not read back to the model written")
+
+        # the reference-layout .pt, read back by the facade as it is (folded
+        # already), serves the detections of the model written
+        det_read = SkyEyeDetector(weights=reference, img_size=1280, device="cuda", fuse=False)
+        det_written = SkyEyeDetector(cfg, img_size=1280, device="cuda")
+        det_written.model = written
+        nms_kernel.reset_launch_counts()
+        read = det_read(batch)
+        torch.cuda.synchronize()
+        k1 = nms_kernel.LAUNCHES["batched_greedy_nms"]
+        if k1 == 0:
+            fail(f"serving {cfg}'s exported .pt never launched batched_greedy_nms")
+        for a, b in zip(read.xyxy, det_written(batch).xyxy):
+            if not np.array_equal(a, b):
+                fail(f"{cfg}'s exported .pt serves other detections than the model written")
+        out[cfg] = {"export_s": export_s, "program_max_abs_err": program_err,
+                    "program_limit": limit, "k1_launches": k1,
+                    "files_mb": {p.name: p.stat().st_size / 2 ** 20
+                                 for p in (program, checkpoint, reference)},
+                    "detections_per_image": [len(d) for d in read.xyxy]}
+        summary.append(dict(name="batched_greedy_nms", path=f"export_{cfg}", launches=k1))
+        del det_read, det_written, written, reread
+        torch.cuda.empty_cache()
+
+    info = {}
+    for cfg in MODEL_CONFIGS:
+        model = create_detector(cfg, device="cuda", seed=0)
+        info[cfg] = {str(s): model_info(model, s) for s in (640, 1280)}
+        del model
+        torch.cuda.empty_cache()
+    emit("export", formats=list(port_export.FORMATS), img_size=EXPORT_IMG, model_info=info,
+         card=gpu_line, phase_s=time.perf_counter() - t_phase, **out)
+    return summary
 
 
 # The validation set the smoke writes: (frames, height, width). Rect batches of
@@ -2535,7 +2891,10 @@ def main() -> int:
     summary += phase_serve_enhanced(torch, gpu_line)
     summary += phase_serve_bf16(torch, gpu_line)
     summary += phase_serve_tiled(torch, gpu_line)
+    summary += phase_serve_int8(torch, gpu_line)
+    summary += phase_serve_int8_early(torch, gpu_line)
     with tempfile.TemporaryDirectory(prefix="skyeye_smoke_") as workdir:
+        summary += phase_export(torch, gpu_line, workdir)
         summary += phase_validate(torch, gpu_line, workdir)
         summary += phase_detect(torch, gpu_line, workdir)
         summary += phase_train(torch, gpu_line, workdir)

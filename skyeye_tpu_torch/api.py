@@ -9,7 +9,9 @@ only the survivors (``ops/late_decode.py``); ``approx_topk=False`` or
 by shape and run in power-of-two batch buckets. Everything runs on the device
 the detector was built for; CUDA is the default. ``Results`` draws
 (``render``/``save``/``crop``) with ``utils.visualization`` and writes with
-``data.imageio.imwrite``, as JAX's does with cv2.
+``data.imageio.imwrite``, as JAX's does with cv2. ``quantize_int8`` turns the
+detector into JAX's int8-neck serving mode (``ops/int8_neck.py``);
+``model_info`` and ``apply`` are JAX's summary and functional access.
 """
 from __future__ import annotations
 
@@ -22,13 +24,16 @@ import torch
 
 from .config import ModelConfig
 from .data.imageio import imread, imwrite
-from .models.detector import create_detector
+from .models.detector import SkyEyeDetectorModule, create_detector
 from .models.head import decode_predictions
+from .ops.calibrate import calibration_paths, observe_ranges
+from .ops.int8_neck import NECK_BLOCKS, _range_key_map, quantize_neck_variables
 from .ops.late_decode import topk_candidates
-from .ops.letterbox import letterbox_batch, letterbox_params
+from .ops.letterbox import letterbox, letterbox_batch, letterbox_params
 from .ops.nms import nms_batched, serving_max_nms, suppress_candidates_batched
 from .utils.checkpoint import fuse_conv_bn, load_model
 from .utils.general import LOGGER, check_img_size, resolve_device
+from .utils.profiling import model_info
 from .utils.visualization import Annotator, colors, save_one_box
 
 
@@ -182,10 +187,61 @@ class SkyEyeDetector:
         self.max_det = max_det
         self.approx_topk = approx_topk
         self.names = list(names) if names else [str(i) for i in range(self.config.nc)]
+        self._int8_neck = False
+        self._bn_fused = weights is not None and fuse
         # Called with each stage's name as the stage is issued (host_prep,
         # host_to_device, letterbox, model, decode, nms, device_to_host, rescale);
         # a caller that synchronizes in it can time the stages of a real request.
         self.on_stage: Optional[Callable[[str], None]] = None
+
+    def quantize_int8(self, calib_images, mode: str = "neck") -> "SkyEyeDetector":
+        """Post-training int8 quantization of the serving model, as JAX's facade
+        does it. mode="neck" (the only mode): every FPN/PAN conv an int8 product
+        with calibrated per-tensor activation scales, int8 between neck convs;
+        the backbone and head stay in the model's dtype.
+
+        ``calib_images``: a handful (8-32) of representative HWC uint8 RGB
+        frames, letterboxed on the host to the detector's ``img_size`` (no
+        minimum rectangle) and run in batches of 8 through
+        ``ops/calibrate.observe_ranges``. BatchNorm is folded first where it was
+        not. Calibrate at the serving resolution. A second call changes nothing.
+        """
+        if mode != "neck":
+            raise ValueError(f"unsupported int8 mode: {mode!r} (only 'neck')")
+        if self._int8_neck:
+            return self
+        if not self._bn_fused:
+            self.model.load_state_dict(fuse_conv_bn(self.model.state_dict()), strict=True)
+            self._bn_fused = True
+        s = self.img_size
+        frames = np.stack([letterbox(np.asarray(im), (s, s), auto=False)[0]
+                           for im in calib_images]).astype(np.float32) / 255.0
+        batches = [frames[i:i + 8] for i in range(0, len(frames), 8)]
+        ranges = observe_ranges(self.model, batches,
+                                paths=calibration_paths(_range_key_map(NECK_BLOCKS)))
+        state = quantize_neck_variables(self.model.state_dict(), ranges, self.config)
+        model = SkyEyeDetectorModule(self.config, dtype=self.model.dtype, int8_neck=True)
+        model.load_state_dict(state, strict=True)
+        self.model = model.eval().to(self.device)
+        self._int8_neck = True
+        return self
+
+    def model_info(self, img_size: Optional[int] = None) -> Dict:
+        """Parameter tensors, parameters and GFLOPs at ``img_size`` (default: the
+        serving size), ``utils/profiling.py``."""
+        return model_info(self.model, img_size or self.img_size)
+
+    @torch.inference_mode()
+    def apply(self, x, train: bool = False) -> List[torch.Tensor]:
+        """The model on (B, H, W, C) images (JAX's layout), on the detector's
+        device: the raw (B, H, W, na, nc + 5) logits per level. ``train=True``
+        would update the BatchNorm statistics, which JAX's ``apply`` refuses
+        without ``mutable``: it raises here too."""
+        if train:
+            raise ValueError("apply(train=True) would update BatchNorm statistics; "
+                             "train through skyeye_tpu_torch.train")
+        x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
+        return self.model(x.to(self.device).permute(0, 3, 1, 2))
 
     def _stage(self, name: str) -> None:
         if self.on_stage is not None:

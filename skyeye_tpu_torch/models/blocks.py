@@ -118,16 +118,21 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class ConvBlock(nn.Module):
-    """Conv2d (no bias) + BatchNorm (eps 1e-5) + SiLU, symmetric k//2 padding."""
+    """Conv2d (no bias) + BatchNorm (eps 1e-5) + SiLU, symmetric k//2 padding, or
+    ``padding`` ((top, bottom), (left, right)) as flax's ConvBlock takes it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
-                 stride: int = 1, dtype: torch.dtype = torch.float32):
+                 stride: int = 1, dtype: torch.dtype = torch.float32, padding=None):
         super().__init__()
+        self.pad = None if padding is None else (*padding[1], *padding[0])  # F.pad's order
         self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding=kernel_size // 2, bias=False, compute_dtype=dtype)
+                           padding=kernel_size // 2 if padding is None else 0, bias=False,
+                           compute_dtype=dtype)
         self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
         return F.silu(self.bn(self.conv(x)))
 
 

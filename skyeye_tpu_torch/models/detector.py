@@ -9,7 +9,10 @@ computes in ``dtype`` (float32 or bfloat16) with float32 parameters, so its
 attention through the fused kernel (K4); the enhanced variant adds
 ``CrossLayerAttention`` P5 -> P4, then P4 -> P3, each to its level;
 ``fused_csp=True`` is the fused-CSP serving mode (K3), built from folded
-weights by ``fused_csp_detector``. ``remat`` recomputes activations in the
+weights by ``fused_csp_detector``. The int8 serving modes are JAX's flags:
+``packed_stem`` (the s2d4 input layout), ``int8_stem`` and ``int8_early`` (on
+it), and ``int8_neck`` (``ops/int8_neck.py``), each with the ``state_dict``
+its quantizer writes. ``remat`` recomputes activations in the
 backward pass at JAX's levels: "block" (or True) each CSP and SPP block of the
 backbone and the neck, "stage" the backbone's four stages and the whole neck;
 the head, and K4 in it, runs once per forward at every level. Parameter names
@@ -26,6 +29,7 @@ from torch import nn
 
 from ..config import ModelConfig, load_model_config
 from ..ops.fused_csp import fuse_csp_state
+from ..ops.int8_neck import Int8Neck
 from ..utils.checkpoint import fuse_conv_bn
 from ..utils.general import resolve_device
 from .attention import CrossLayerAttention
@@ -39,16 +43,24 @@ class SkyEyeDetectorModule(nn.Module):
     """Full detector: returns raw per-level logits (B, H, W, na, nc + 5)."""
 
     def __init__(self, config: ModelConfig, fused_csp: bool = False,
-                 dtype: torch.dtype = torch.float32, remat: Union[bool, str] = False):
+                 dtype: torch.dtype = torch.float32, remat: Union[bool, str] = False,
+                 packed_stem: bool = False, int8_early: bool = False, int8_stem: bool = False,
+                 int8_neck: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.int8_neck = int8_neck
         self.remat = remat_level(remat)
         channels = feature_channels(config.base_channels, config.width_multiple)
         self.backbone = CSPDarknet(config.base_channels, config.depth_multiple,
                                    config.width_multiple, config.in_channels, fused_csp,
-                                   dtype=dtype, remat=self.remat)
-        self.neck = FeatureNeck(channels, dtype=dtype, remat=self.remat == "block")
+                                   dtype=dtype, remat=self.remat, packed_stem=packed_stem,
+                                   int8_early=int8_early, int8_stem=int8_stem)
+        if int8_neck:  # serving only: never recomputed
+            self.remat = ""
+            self.neck = Int8Neck(channels, dtype=dtype)
+        else:
+            self.neck = FeatureNeck(channels, dtype=dtype, remat=self.remat == "block")
         if config.enhanced:  # named as in flax, beside backbone, neck and head
             c3, c4, c5 = channels
             ref_exact = config.ref_exact_cross_attn

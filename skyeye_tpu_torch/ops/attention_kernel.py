@@ -16,6 +16,12 @@ is einsums in JAX too, so it is plain PyTorch here. Without grad (``no_grad``,
 A CUDA tensor launches the kernel (and adds one to ``LAUNCHES``); a CPU tensor
 runs ``flash_attention_plain``, the kernel's online softmax over key tiles op
 for op. ``attention_reference`` is the einsum, softmax, einsum definition.
+
+The forward is the custom op ``skyeye::flash_attention`` (``torch.library``),
+with a fake implementation for tracing, so a ``torch.export`` program keeps K4
+as one node (``cli/export.py``), and with a FLOP formula (4 B N^2 hd, what
+JAX's einsums count) for ``torch.utils.flop_counter``, which cannot see into a
+ctypes call.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .cuda_build import Built, load_library
 
@@ -135,6 +142,23 @@ def run_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("skyeye::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K4's forward as one operator: the kernel on CUDA, its plain version on the CPU."""
+    return _forward(q, k, v)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.skyeye.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    b, n, hd = q_shape
+    return 4 * b * n * k_shape[1] * hd  # q k^T and p v, 2 a multiply-add
+
+
 class FlashAttention(torch.autograd.Function):
     """K4 with JAX's custom VJP: the forward is the kernel (or its plain version),
     the backward ``flash_attention_backward`` on the saved q, k and v."""
@@ -143,7 +167,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, keep_for_backward: bool):
         if keep_for_backward:
             ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v)
+        return flash_attention_op(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
@@ -163,5 +187,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
             raise ValueError(f"{name} must be contiguous")
         if t.device != q.device:
             raise ValueError("q, k and v must be on one device")
-    keep = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return FlashAttention.apply(q, k, v, keep)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, True)
+    return flash_attention_op(q, k, v)

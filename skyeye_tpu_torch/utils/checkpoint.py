@@ -5,8 +5,14 @@ to one ``state_dict`` key: conv kernels go from HWIO to OIHW, dense kernels
 from (in, out) to (out, in), and BatchNorm ``scale``/``bias``/``mean``/``var``
 to ``weight``/``bias``/``running_mean``/``running_var``, LayerNorm
 ``scale``/``bias`` likewise; the flat leaves of ``FusedCSPBlock`` (``w_cv1``,
-..., ``b_cv3``) keep their JAX layout. The caller flattens the flax variables
-to numpy arrays; nothing here imports flax.
+..., ``b_cv3``) and of the int8 modules (``*_k``, ``*_ws``, ``*_b``, ``s_*``;
+``kernel_q``, ``w_scale``, ``bias``, ``tap_sums``) keep their JAX layout, and
+int8 stays int8. The caller flattens the flax variables to numpy arrays;
+nothing here imports flax.
+
+``export_torch`` is the counterpart of ``skyeye_tpu/cli/export.py::export_torch``:
+the reference-layout ``.pt`` that both packages read, key for key and bit for
+bit what JAX writes for the same weights.
 
 ``load_torch_checkpoint`` reads a reference-layout ``.pt`` (what
 ``skyeye_tpu/cli/export.py::export_torch`` writes, in any of the reference's
@@ -16,7 +22,8 @@ it by shape, leaving the rest of a module's weights as they are, and
 ``load_model`` is the facade's loader (the port of JAX's ``load_model``).
 
 ``save_model`` writes the port's own ``state_dict`` and config to a ``.pt``
-that ``load_model`` reads back without conversion. ``fuse_conv_bn`` folds
+that ``load_model`` reads back without conversion (any serving mode's
+buffers included); JAX does not read it. ``fuse_conv_bn`` folds
 BatchNorm into the preceding conv, on the port's own ``state_dict``.
 
 Training: ``save_train_checkpoint`` writes ``save_model``'s layout with the
@@ -44,6 +51,8 @@ from .general import LOGGER
 
 _COLLECTIONS = ("params", "batch_stats")
 _LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+# the int8 modules' flat leaves (ops/int8_stage.py, int8_neck.py, int8_stem.py)
+_INT8_LEAF = re.compile(r"^(?:.+_(?:k|ws|b)|s_.+|kernel_q|w_scale|tap_sums)$")
 
 
 def from_jax_variables(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -56,7 +65,8 @@ def from_jax_variables(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor
         if parts[0] in _COLLECTIONS:
             parts = parts[1:]
         module, leaf = ".".join(parts[:-1]), parts[-1]
-        arr = np.asarray(value, dtype=np.float32)
+        arr = np.asarray(value)
+        arr = arr if arr.dtype == np.int8 else arr.astype(np.float32)
         if leaf == "kernel":
             if arr.ndim == 4:  # conv: (kh, kw, in, out) -> (out, in, kh, kw)
                 arr = arr.transpose(3, 2, 0, 1)
@@ -65,7 +75,7 @@ def from_jax_variables(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor
             else:
                 raise ValueError(f"{path}: kernel of rank {arr.ndim}")
             name = "weight"
-        elif leaf in _FLAT_LEAVES:
+        elif leaf in _FLAT_LEAVES or _INT8_LEAF.match(leaf):
             name = leaf
         elif leaf in _LEAVES:
             name = _LEAVES[leaf]
@@ -222,6 +232,104 @@ def convert_torch_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.T
     if stem in flat and flat[stem].shape[2] % 4 == 0:
         flat[stem] = fused_stem_kernel(flat[stem])
     return from_jax_variables(flat)
+
+
+def unfuse_stem_kernel(k_fused: np.ndarray) -> np.ndarray:
+    """Inverse of ``fused_stem_kernel``: (2k, 2k, C, O) -> (k, k, 4C, O)."""
+    k2, _, c, o = k_fused.shape
+    k = k2 // 2
+    out = np.zeros((k, k, 4 * c, o), k_fused.dtype)
+    for p, (dy, dx) in enumerate(_S2D_OFFSETS):
+        out[:, :, p * c: (p + 1) * c] = k_fused[dy::2, dx::2]
+    return out
+
+
+# flax path -> reference module path: the inverse of _PREFIX_RULES (but the head's
+# numbered rule, which _flax_to_torch_key matches apart), as JAX's export map
+_INVERSE_PREFIX = {flax.rstrip("/"): pat[1:].replace("\\.", ".").rstrip(".")
+                   for pat, flax in _PREFIX_RULES if "(" not in pat}
+_EXPORT_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                  "var": "running_var"}
+
+
+def _flax_to_torch_key(path) -> Optional[str]:
+    """A flax module path -> its reference module path, or None (JAX's
+    ``_flax_to_torch_key``: a bottleneck ``m<i>`` right after a prefix becomes
+    ``bottlenecks.<i>``; a head pred conv maps by its index)."""
+    joined = "/".join(path)
+    for pre, tpre in sorted(_INVERSE_PREFIX.items(), key=lambda kv: -len(kv[0])):
+        if joined.startswith(pre + "/") or joined == pre:
+            rest = re.sub(r"^m(\d+)", r"bottlenecks.\1", joined[len(pre):].strip("/"))
+            rest = rest.replace("/", ".")
+            return f"{tpre}.{rest}" if rest else tpre
+    m = re.match(r"head/pred(\d+)(?:/(.+))?$", joined)
+    if m:
+        base = f"detection_head.detection_layers.{m.group(1)}"
+        return f"{base}.{m.group(2).replace('/', '.')}" if m.group(2) else base
+    return None
+
+
+def _flax_leaves(module: torch.nn.Module):
+    """Each ``state_dict`` entry as its flax leaf: (collection, module path, leaf
+    name, tensor), in JAX's tree order (params, then batch_stats; keys sorted)."""
+    owners = dict(module.named_modules())
+    out = []
+    for key, t in module.state_dict().items():
+        name, attr = key.rsplit(".", 1)
+        owner = owners[name]
+        if isinstance(owner, torch.nn.modules.batchnorm._BatchNorm):
+            leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                    "running_var": "var"}.get(attr)
+            if leaf is None:  # num_batches_tracked: no flax counterpart
+                continue
+        elif isinstance(owner, torch.nn.LayerNorm):
+            leaf = {"weight": "scale"}.get(attr, attr)
+        elif isinstance(owner, (torch.nn.Conv2d, torch.nn.Linear)):
+            leaf = {"weight": "kernel"}.get(attr, attr)
+        else:  # flat leaves (the fused CSP's, the int8 modules')
+            leaf = attr
+        coll = "batch_stats" if leaf in ("mean", "var") else "params"
+        out.append((coll, tuple(name.split(".")), leaf, t))
+    out.sort(key=lambda e: (_COLLECTIONS.index(e[0]), e[1] + (e[2],)))
+    return out
+
+
+def reference_state_dict(module: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], int]:
+    """The reference-layout ``state_dict`` of ``module`` and the number of leaves
+    with no reference key (skipped), as JAX's ``export_torch`` builds it: the
+    fused stem kernel unfused to the reference's k x k over the space-to-depth
+    image, kernels in OIHW and dense kernels (out, in) (the port's own
+    layouts), BN ``scale``/``mean``/``var`` as ``weight``/``running_mean``/
+    ``running_var``. A leaf whose module has a reference key but whose name is
+    none of JAX's (the fused CSP's and the int8 stem's flat leaves) is left out
+    without being counted, as JAX does."""
+    sd: Dict[str, torch.Tensor] = {}
+    skipped = 0
+    for _coll, path, leaf, t in _flax_leaves(module):
+        tkey = _flax_to_torch_key(path)
+        if tkey is None:
+            skipped += 1
+            continue
+        v = t.detach().cpu()
+        if leaf == "kernel":
+            if v.dim() == 4 and path == ("backbone", "stem", "conv"):
+                hwio = unfuse_stem_kernel(v.numpy().transpose(2, 3, 1, 0))
+                v = torch.from_numpy(np.ascontiguousarray(hwio.transpose(3, 2, 0, 1)))
+            sd[f"{tkey}.weight"] = v.clone()
+        elif leaf in _EXPORT_LEAVES:
+            sd[f"{tkey}.{_EXPORT_LEAVES[leaf]}"] = v.clone()
+    return sd, skipped
+
+
+def export_torch(module: torch.nn.Module, path) -> Path:
+    """Write ``{"state_dict": <reference keys>, "config": ...}``: the ``.pt`` JAX
+    writes with ``skyeye_tpu.cli.export --formats torch`` and reads with its
+    ``load_model``, as the port's ``load_model`` does."""
+    path = Path(path)
+    sd, skipped = reference_state_dict(module)
+    torch.save({"state_dict": sd, "config": module.config.to_dict()}, path)
+    LOGGER.info("torch export: %s (%d tensors, %d skipped)", path, len(sd), skipped)
+    return path
 
 
 PORT_LAYOUT = "skyeye_tpu_torch"  # a .pt that holds the port's own state_dict

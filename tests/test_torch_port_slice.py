@@ -193,6 +193,10 @@ def test_main_path_imports_no_jax():
         "import skyeye_tpu_torch.cli.detect, skyeye_tpu_torch.data.loaders\n"
         "import skyeye_tpu_torch.data.jpeg, skyeye_tpu_torch.utils.visualization\n"
         "import skyeye_tpu_torch.data.augment, skyeye_tpu_torch.train.evolve\n"
+        "import skyeye_tpu_torch.ops.calibrate, skyeye_tpu_torch.ops.packed_stem\n"
+        "import skyeye_tpu_torch.ops.int8_stage, skyeye_tpu_torch.ops.int8_neck\n"
+        "import skyeye_tpu_torch.ops.int8_stem, skyeye_tpu_torch.cli.export\n"
+        "import skyeye_tpu_torch.utils.profiling\n"
         "import chip_smoke\n"
         "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'pandas')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
