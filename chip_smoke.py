@@ -163,7 +163,7 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            loader augments on the host, ``data/augment.py``): skyeye_s at full
            width and depth, nc 10, float32 with TF32 off, 640 px, batch 16,
            DEFAULT_HYP (mosaic 1.0, translate 0.1, scale 0.5, HSV, fliplr 0.5),
-           4 workers, 2 epochs of 3 batches over validate's 48 frames,
+           4 workers, 1 epoch of 3 batches over validate's 48 frames,
            validation after each (K1's launches counted over the run, each
            input held index for index against the plain NMS); the loader's
            first batch at 1 and at 4 workers byte for byte equal; every loss
@@ -184,13 +184,34 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            of it from the seed's generator (recomputed here),
            ``hyp_evolved.yaml`` reads back through ``config.load_hyp`` to the
            best row; K1's launches counted over both generations' validations
+  train_multi
+           data-parallel training through ``parallel.launch`` (skyeye_s, nc
+           10, 640 px, batch 16, float32, TF32 off, device augmentation,
+           accumulate 2, 3 micro-steps from the smoke's weights): (a) world
+           1 over NCCL: the plain step, its float64 copy, the data-parallel
+           step (synced BatchNorm, the global batch's loss normalisers,
+           summed gradients) and the FSDP step; (b) world 2 over gloo, two
+           processes on the one card: data-parallel and FSDP against (a), the
+           ranks' states equal bit for bit; the gates of ``_gates``; ms a
+           micro-step with and without the wrapper, the collectives of a
+           micro-step and NCCL's device ms (``torch.profiler``);
+           skyeye_l_transformer's data-parallel micro-step (K4 once) against
+           its plain step; (c) ``cli.train`` at world 2 over gloo, one epoch:
+           rank 0 validates (K1 counted in its process) and writes,
+           ``last.pt`` validated to its row
+  serve_mesh
+           ``SkyEyeDetector("skyeye_s", mesh=...)``, two replicas on the one
+           card: 3 requests of 16 frames at 1280 px and a batch of 3 (the pad
+           path), index for index against the unmeshed detector, K1 once a
+           share; the fused-CSP mode on the mesh (K3 once a share)
 
 The serving phases reach K1 through the facade's default cut: late decode
 (``ops/late_decode.py``), per level on the raw logits, k = 1152 at conf 0.25 and
 4096 at 0.001. Then a ``{"kernels": [...]}`` line (a kernel's ``launches`` summed
 over the paths in ``launches_by_path``: K1's include the int8 phases,
-``export``, ``detect``, ``train``, ``train_host_aug`` and ``evolve``, K4's
-``train_transformer`` and ``train_remat``),
+``export``, ``detect``, ``train``, ``train_host_aug``, ``evolve``,
+``train_multi`` and ``serve_mesh``, K3's ``serve_mesh``, K4's
+``train_transformer``, ``train_remat`` and ``train_multi``),
 the ``nvidia-smi`` name and
 power-limit line, and, last, ``{"ok": true, "device": {...}}``. A watchdog ends
 a hung run with a traceback and a non-zero exit. Imports torch, numpy and the
@@ -2521,7 +2542,9 @@ def phase_train_transformer(torch, gpu_line, workdir):
                  launches=launches["flash_attention"])]
 
 
-HOST_AUG_EPOCHS = 2  # train_host_aug: 3 batches an epoch over validate's 48 frames
+# train_host_aug: 3 batches an epoch over validate's 48 frames; one epoch (it ran
+# two before the multi-device phases took that time, within half the 1200 s limit)
+HOST_AUG_EPOCHS = 1
 HOST_AUG_WORKERS = 4  # cli.train's default
 # remat levels against no remat on one micro-step, of each gradient's max|g|
 # (bitwise equal on one H100, cuDNN deterministic)
@@ -2839,6 +2862,533 @@ def phase_evolve(torch, gpu_line, workdir):
                  launches=launches["batched_greedy_nms"])]
 
 
+# -- multi-device: data-parallel training and serving split over replicas ------------
+
+MULTI_WORLD = 2
+MULTI_MICRO_STEPS, MULTI_ACCUMULATE = 3, 2  # the second micro-step updates the parameters
+MULTI_LOSS_REL, MULTI_LOSS_AFTER_UPDATE_REL = 1e-5, 1e-3
+MULTI_STATS_AFTER_UPDATE_REL = 1e-2
+MULTI_PARAMS_AFTER_UPDATE_REL = 2 * GRAD_VS_FLOAT64_REL
+# tests/test_torch_port_train_step.py's allowances: 1e-4 x max|w| + 1e-3 x max|change|
+MULTI_STATE_REL, MULTI_CHANGE_REL = 1e-4, 1e-3
+MULTI_TIMEOUT_S = 300  # a collective that waits longer raises
+MULTI_TRANSFORMER_BATCH = 4
+# serve_mesh against the unmeshed detector's whole batch: boxes (px) and scores to
+# the rounding of convolutions over a share of the batch (on the card 1.2e-4 px
+# and 6e-8; the CPU tests see 7.6e-6 px and 6e-8 at a share of 2 against 3)
+MESH_BOX_ATOL, MESH_SCORE_ATOL = 1e-3, 1e-5
+
+
+def _no_tf32(torch):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _multi_data(workdir):
+    return {"path": workdir, "train": "images/val", "val": "images/val",
+            "nc": len(DRONE_NAMES), "names": DRONE_NAMES}
+
+
+def _multi_batch(torch, data, rank, world, dev):
+    """This rank's share of the loader's first global batch (letterboxed, as with
+    device augmentation), on its card."""
+    from skyeye_tpu_torch.data.dataset import create_dataloader
+
+    loader, _ = create_dataloader(data["path"] + "/" + data["train"], img_size=TRAIN_IMG,
+                                  batch_size=TRAIN_BATCH, stride=32, augment=False, workers=4,
+                                  seed=0, shuffle=True, rank=rank, world=world)
+    b = next(iter(loader))
+    return {k: torch.from_numpy(np.asarray(b[k])).to(dev) for k in ("images", "targets", "mask")}
+
+
+class _CollectiveCount:
+    """Calls of the process-group collectives while it is entered."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "broadcast")
+
+    def __init__(self, dist):
+        self.dist, self.calls, self.patches = dist, {}, []
+
+    def __enter__(self):
+        for name in self.NAMES:
+            real = getattr(self.dist, name)
+
+            def counted(*a, _real=real, _name=name, **k):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _real(*a, **k)
+            self.patches.append(mock.patch.object(self.dist, name, counted))
+            self.patches[-1].start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.patches:
+            p.stop()
+
+
+def _multi_steps(torch, spec, mesh, batch, fsdp=False, timed_extra=0, float64=False,
+                 profile=False):
+    """The micro-steps from the smoke's skyeye_s weights on ``batch`` (this rank's
+    share): losses, each micro-step's ms (CUDA events), the collectives of one
+    micro-step (and, with ``profile``, NCCL's device ms in it), and the state
+    after the first micro-step (before any update) and after
+    ``MULTI_MICRO_STEPS`` (one update in). ``float64``: the model in float64
+    (the reference the float32 runs are read against)."""
+    import torch.distributed as dist
+
+    from skyeye_tpu_torch.config import DEFAULT_HYP
+    from skyeye_tpu_torch.data.device_aug import augment_batch_device
+    from skyeye_tpu_torch.losses import ComputeLoss
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.parallel import jit_fsdp_step, shard_train_state
+    from skyeye_tpu_torch.parallel.fsdp import full_tensors
+    from skyeye_tpu_torch.train import (
+        RuntimeOptimizer, create_train_state, make_train_step, step_generator,
+    )
+    from skyeye_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    from skyeye_tpu_torch.models.detector import SkyEyeDetectorModule
+
+    dev = batch["images"].device
+    model = create_detector("skyeye_s", num_classes=len(DRONE_NAMES), device=dev)
+    model.load_state_dict(load_torch_checkpoint(spec["weights"])[0], strict=True)
+    if float64:
+        m64 = SkyEyeDetectorModule(model.config, dtype=torch.float64)
+        m64.load_state_dict(model.state_dict(), strict=True)
+        model = m64.double().to(dev)
+    opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=TRAIN_BATCH,
+                           accumulate=MULTI_ACCUMULATE)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, ComputeLoss(model.config.anchors, model.config.nc), opt,
+                           device_augment=lambda im, t, m, g, **k: augment_batch_device(
+                               im, t, m, g, hyp=DEFAULT_HYP, **k), mesh=mesh)
+    if fsdp:
+        shard_train_state(mesh, state)
+        step = jit_fsdp_step(step, mesh, state)
+    hp = {"lr": 0.01, "bias_lr": 0.01, "momentum": 0.937}
+    losses, ms, collectives, tensors = [], [], {}, {}
+    for i in range(MULTI_MICRO_STEPS + timed_extra):
+        b = dict(batch, aug_generator=step_generator(0, i, dev), n_valid=TRAIN_BATCH,
+                 opt_hyperparams=hp)
+        if i == 1 and mesh is not None:
+            with _CollectiveCount(dist) as count:
+                if profile:
+                    nccl_ms, m = _collective_ms(torch, lambda: step(state, b)[1])
+                else:
+                    start = cuda_event(torch)
+                    _, m = step(state, b)
+            collectives = count.calls
+        else:
+            start = cuda_event(torch)
+            _, m = step(state, b)
+        end = cuda_event(torch)
+        torch.cuda.synchronize()
+        if not (i == 1 and profile and mesh is not None):  # the profiled step is not timed
+            ms.append(start.elapsed_time(end))
+        if i < MULTI_MICRO_STEPS:
+            losses.append(float(m["loss"]))
+        if i in (0, MULTI_MICRO_STEPS - 1):
+            snap = {k: v.detach().double().cpu().clone() for k, v in
+                    full_tensors(state.model.state_dict()).items()
+                    if not k.endswith("num_batches_tracked")}
+            snap.update({f"ema:{k}": v.detach().double().cpu().clone()
+                         for k, v in full_tensors(state.ema.params).items()})
+            tensors["first" if i == 0 else "last"] = snap
+    out = {"losses": losses, "ms": ms, "collectives": collectives}
+    if profile and mesh is not None:
+        out["nccl_device_ms"] = nccl_ms
+    return out, tensors
+
+
+def _ranks_equal(torch, tensors, dev, group):
+    """Whether every rank holds rank 0's tensors bit for bit (one broadcast)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for snap in tensors.values()
+                      for t in snap.values()]).to(dev)
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=0, group=group)
+    same = torch.tensor([1.0 if torch.equal(theirs, flat) else 0.0], device=dev)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN, group=group)
+    return bool(same.item())
+
+
+def _collective_ms(torch, run):
+    """(device ms in NCCL kernels during ``run()`` by torch.profiler, or None where
+    the profiler saw no device time; ``run()``'s result)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = sum(getattr(e, "device_time_total", 0.0) for e in events)
+    if device <= 0:
+        return None, result
+    return sum(getattr(e, "device_time_total", 0.0) for e in events
+               if "nccl" in e.key.lower()) / 1e3, result
+
+
+def multi_worker(spec):
+    """One rank of ``train_multi`` (a) or (b) and (c): the data-parallel and FSDP
+    micro-steps (and, with ``spec["plain"]``, the plain and float64 steps and the
+    transformer's data-parallel step; with ``spec["cli"]``, then ``cli.train``
+    on those keyword arguments, K1's launches in this process counted around
+    it); rank 0 saves each state under ``spec["out"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from skyeye_tpu_torch.parallel import create_mesh
+
+    _no_tf32(torch)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = create_mesh(devices=[dev])
+    data = _multi_data(spec["workdir"])
+    batch = _multi_batch(torch, data, mesh.rank, mesh.size, dev)
+    out, tag = {"backend": dist.get_backend(), "world": mesh.size}, spec["tag"]
+    runs = [("dp", dict(mesh=mesh, profile=spec["plain"])), ("fsdp", dict(mesh=mesh, fsdp=True))]
+    if spec["plain"]:
+        full = _multi_batch(torch, data, 0, 1, dev)
+        runs[:0] = [("plain", dict(mesh=None, batch=full)),
+                    ("plain64", dict(mesh=None, batch=full, float64=True))]
+    for name, kw in runs:
+        kw.setdefault("batch", batch)
+        extra = 2 if spec["plain"] and name != "plain64" else 0
+        res, tensors = _multi_steps(torch, spec, timed_extra=extra, **kw)
+        if mesh.size > 1:
+            res["ranks_bitwise_equal"] = _ranks_equal(torch, tensors, dev, mesh.group)
+        if mesh.rank == 0:
+            torch.save(tensors, f"{spec['out']}/{tag}_{name}.pt")
+        out[name] = res
+        del tensors
+        torch.cuda.empty_cache()
+    if spec["plain"]:
+        out["transformer"] = _multi_transformer(torch, mesh, batch)
+    if spec.get("cli"):
+        from skyeye_tpu_torch.cli.train import train
+        from skyeye_tpu_torch.ops import nms_kernel
+
+        del batch
+        torch.cuda.empty_cache()
+        nms_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, save_dir = train(**spec["cli"])
+        out["cli"] = {"results": list(results), "save_dir": str(save_dir),
+                      "launches": dict(nms_kernel.LAUNCHES), "s": time.perf_counter() - t0}
+    return out
+
+
+def _multi_transformer(torch, mesh, batch):
+    """skyeye_l_transformer's data-parallel micro-step (K4 in its forward) against
+    its plain step, from the seed-0 weights, on the batch's first frames."""
+    from skyeye_tpu_torch.config import DEFAULT_HYP
+    from skyeye_tpu_torch.losses import ComputeLoss
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.ops import attention_kernel
+    from skyeye_tpu_torch.train import RuntimeOptimizer, create_train_state, make_train_step
+
+    b = {k: v[:MULTI_TRANSFORMER_BATCH] for k, v in batch.items()}
+    b["opt_hyperparams"] = {"lr": 0.0, "bias_lr": 0.0, "momentum": 0.937}
+    out = {}
+    model = create_detector("skyeye_l_transformer", num_classes=len(DRONE_NAMES),
+                            device=batch["images"].device, seed=0)
+    seeded = {k: v.clone() for k, v in model.state_dict().items()}
+    for name, m in (("plain", None), ("dp", mesh)):
+        model.load_state_dict(seeded, strict=True)  # the BatchNorm statistics too
+        opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=64)
+        step = make_train_step(model, ComputeLoss(model.config.anchors, model.config.nc), opt,
+                               mesh=m)
+        attention_kernel.reset_launch_counts()
+        _, metrics = step(create_train_state(model, opt), dict(b))
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(metrics["loss"]),
+                     "k4_launches": attention_kernel.LAUNCHES["flash_attention"]}
+        del opt, step
+    del model, seeded
+    torch.cuda.empty_cache()
+    return out
+
+
+def _allowance(w, start, change_rel):
+    return MULTI_STATE_REL * float(w.abs().max()) + change_rel * float((w - start).abs().max())
+
+
+def _is_stat(k: str) -> bool:
+    return k.endswith(("running_mean", "running_var"))
+
+
+def _worst(excess):
+    k = max(excess, key=excess.get)
+    return excess[k], k
+
+
+def _gates(got, ref, f64, start):
+    """``got`` (losses, states) of a data-parallel or FSDP run against ``ref``
+    (the plain step's, or world 1's data-parallel run's) on the same micro-steps.
+
+    Before the update (micro-steps 1-2, the state after micro-step 1): losses
+    within 1e-5 relative, every tensor within 1e-4 max|w| + 1e-3 max|change|
+    (tests/test_torch_port_train_step.py's allowances). After it (micro-step 3,
+    one update in): that file's after-update allowances, the loss within 1e-3
+    and the BatchNorm statistics within 1e-4 max|w| + 1e-2 max|change|; the
+    parameters and the EMA within 1e-4 max|w| + 2 x GRAD_VS_FLOAT64_REL x
+    max|change|: on this batch (the smoke's first, its first draws) a float32
+    gradient lies up to GRAD_VS_FLOAT64_REL of max|g| from float64 (SPP's
+    max-pool winners), so two float32 updates may part by twice that
+    share of their change, more than 1e-3 of it. Each run's distance from the
+    float64 step, in 1e-4 max|w| + 1e-3 max|change|, is reported beside."""
+    (losses, states), (ref_losses, ref_states) = got, ref
+    first, last, to64 = {}, {}, {}
+    for k, w in ref_states["first"].items():
+        first[k] = float((states["first"][k] - w).abs().max()) / max(
+            _allowance(w, start[k.split(":", 1)[-1]], MULTI_CHANGE_REL), 1e-30)
+    for k, w in ref_states["last"].items():
+        s0 = start[k.split(":", 1)[-1]]
+        rel = MULTI_STATS_AFTER_UPDATE_REL if _is_stat(k) else MULTI_PARAMS_AFTER_UPDATE_REL
+        last[k] = float((states["last"][k] - w).abs().max()) / max(_allowance(w, s0, rel), 1e-30)
+        w64 = f64["last"][k]
+        to64[k] = float((states["last"][k] - w64).abs().max()) / max(
+            _allowance(w64, s0, MULTI_CHANGE_REL), 1e-30)
+    rel = [abs(x - y) / abs(y) for x, y in zip(losses, ref_losses)]
+    return {"loss_rel_before_update": max(rel[:2]), "loss_rel_after_update": rel[2],
+            "state_before_update": _worst(first), "state_after_update": _worst(last),
+            "from_float64_after_update": _worst(to64)}
+
+
+def _gates_fail(checks) -> bool:
+    return (checks["loss_rel_before_update"] > MULTI_LOSS_REL
+            or checks["loss_rel_after_update"] > MULTI_LOSS_AFTER_UPDATE_REL
+            or checks["state_before_update"][0] > 1.0 or checks["state_after_update"][0] > 1.0)
+
+
+def phase_train_multi(torch, gpu_line, workdir):
+    """Data-parallel training (synced BatchNorm, the global batch's loss
+    normalisers, summed gradients) and FSDP through the launcher: (a) world 1
+    over NCCL against the plain step, (b) world 2 over gloo, two processes on
+    the one card, against (a), then (c) ``cli.train`` at world 2 over gloo in
+    the same two processes."""
+    from pathlib import Path
+
+    import torch.distributed  # noqa: F401
+
+    from skyeye_tpu_torch.cli import validate as port_validate
+    from skyeye_tpu_torch.parallel import launch
+    from skyeye_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    t_phase = time.perf_counter()
+    root = Path(workdir)
+    out_dir = root / "train_multi"
+    out_dir.mkdir(exist_ok=True)
+    spec = {"workdir": str(root), "weights": str(root / "skyeye_s.pt"), "out": str(out_dir)}
+    start = load_torch_checkpoint(spec["weights"])[0]
+
+    # (a) world 1 over NCCL; (b) world 2 over gloo on the one card, whose workers
+    # then run (c), cli.train at world 2 (rank 0 validates and writes)
+    cli_kwargs = dict(cfg="skyeye_s", data=_multi_data(str(root)), epochs=1,
+                      batch_size=TRAIN_BATCH, img_size=TRAIN_IMG, weights=spec["weights"],
+                      device_aug=True, project=str(root / "runs_multi"), name="exp", seed=0,
+                      device="cuda")
+    t0 = time.perf_counter()
+    a = launch(multi_worker, 1, kwargs={"spec": dict(spec, tag="a", plain=True)},
+               backend="nccl", timeout_s=MULTI_TIMEOUT_S)[0]
+    a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = launch(multi_worker, MULTI_WORLD,
+               kwargs={"spec": dict(spec, tag="b", plain=False, cli=cli_kwargs)},
+               backend="gloo", timeout_s=MULTI_TIMEOUT_S)
+    bc_s = time.perf_counter() - t0
+    start = {k: v.double() for k, v in start.items()}
+    saved = {n: torch.load(out_dir / f"a_{n}.pt") for n in ("plain", "plain64", "dp")}
+    checks = {}
+    for tag, runs in (("a", [a]), ("b", b)):
+        for name in ("dp", "fsdp"):
+            res = runs[0][name]
+            ref_name = "plain" if tag == "a" else "dp"
+            got = (res["losses"], torch.load(out_dir / f"{tag}_{name}.pt"))
+            c = _gates(got, (a[ref_name]["losses"], saved[ref_name]), saved["plain64"], start)
+            checks[f"{tag}_{name}"] = dict(c, against=f"a_{ref_name}")
+            if _gates_fail(c):
+                fail(f"train_multi ({tag}) {name}: losses {res['losses']} against "
+                     f"{a[ref_name]['losses']}; {c}")
+            if tag == "b" and not all(r[name]["ranks_bitwise_equal"] for r in runs):
+                fail(f"train_multi (b) {name}: the ranks' states differ")
+            del got
+    # the float32 step's own gap from float64 after the update, in 1e-4 max|w| +
+    # 1e-3 max|change| (what the parameters' gate above grants on top)
+    plain_gap = {
+        "loss_rel": [abs(x - y) / abs(y) for x, y in zip(a["plain"]["losses"],
+                                                          a["plain64"]["losses"])],
+        "state_after_update": _worst({
+            k: float((saved["plain"]["last"][k] - w).abs().max()) / max(
+                _allowance(w, start[k.split(":", 1)[-1]], MULTI_CHANGE_REL), 1e-30)
+            for k, w in saved["plain64"]["last"].items()})}
+    del saved
+    tr = a["transformer"]
+    if tr["dp"]["k4_launches"] == 0 or abs(tr["dp"]["loss"] - tr["plain"]["loss"]) > \
+            MULTI_LOSS_REL * abs(tr["plain"]["loss"]):
+        fail(f"train_multi: skyeye_l_transformer's data-parallel step {tr}")
+
+    # (c)
+    c = [r["cli"] for r in b]
+    save_dir = Path(c[0]["save_dir"])
+    if c[1]["save_dir"] != c[0]["save_dir"] or c[1]["launches"]["batched_greedy_nms"] != 0:
+        fail(f"train_multi (c): rank 1 ran in {c[1]['save_dir']} with launches "
+             f"{c[1]['launches']}")
+    k1_launches = c[0]["launches"]["batched_greedy_nms"]
+    if k1_launches == 0:
+        fail("train_multi (c): rank 0's validation never launched batched_greedy_nms")
+    with open(save_dir / "results.csv") as f:
+        rows = [r.strip().split(",") for r in f.readlines()[1:]]
+    if len(rows) != 1 or not np.isfinite([float(v) for v in rows[0]]).all():
+        fail(f"train_multi (c): results.csv rows {rows}")
+    (mp, mr, map50, map_, *_), _, _ = port_validate.validate(
+        _multi_data(str(root)), weights=str(save_dir / "weights" / "last.pt"),
+        batch_size=TRAIN_BATCH, img_size=TRAIN_IMG, project=str(root / "runs_multi_val"),
+        plots=False, device="cuda")
+    last_val = {"validate": [mp, mr, map50, map_], "results_csv": [float(v) for v in rows[0][4:8]]}
+    if not np.allclose(last_val["validate"], last_val["results_csv"], rtol=1e-3, atol=0):
+        fail(f"train_multi (c): last.pt validates to {last_val['validate']}, its row says "
+             f"{last_val['results_csv']}")
+
+    a_ms = {k: a[k]["ms"] for k in ("plain", "dp", "fsdp")}
+    checks["plain_against_float64"] = plain_gap
+    emit("train_multi", model="skyeye_s", nc=len(DRONE_NAMES), img_size=TRAIN_IMG,
+         batch=TRAIN_BATCH, accumulate=MULTI_ACCUMULATE, micro_steps=MULTI_MICRO_STEPS,
+         dtype="float32", tf32=False, device_aug=True,
+         world1_nccl={"backend": a["backend"], "losses": {k: a[k]["losses"] for k in
+                                                         ("plain", "plain64", "dp", "fsdp")},
+                      "micro_step_ms": a_ms,
+                      "median_ms_last3": {k: float(np.median(v[-3:])) for k, v in a_ms.items()},
+                      "collectives_per_micro_step": {k: a[k]["collectives"]
+                                                     for k in ("dp", "fsdp")},
+                      "nccl_device_ms_one_micro_step": a["dp"]["nccl_device_ms"],
+                      "transformer": tr, "command_s": a_s},
+         world2_gloo_one_card={"backend": b[0]["backend"],
+                               "losses": {k: [r[k]["losses"] for r in b]
+                                          for k in ("dp", "fsdp")},
+                               "micro_step_ms": {k: [r[k]["ms"] for r in b]
+                                                 for k in ("dp", "fsdp")},
+                               "command_s_with_c": bc_s,
+                               "note": "two processes share one card over gloo: "
+                                       "no speed is measured"},
+         checks=checks,
+         cli_world2_gloo={"results_csv": rows, "last_pt_validation": last_val,
+                          "k1_launches_rank0": k1_launches, "cli_train_s": c[0]["s"]},
+         card=gpu_line, phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="train_multi", launches=k1_launches),
+            dict(name="flash_attention", path="train_multi",
+                 launches=tr["dp"]["k4_launches"])]
+
+
+def phase_serve_mesh(torch, gpu_line):
+    """``SkyEyeDetector("skyeye_s", mesh=...)`` with two replicas on the one card:
+    3 requests of 16 frames at 1280 px and a batch of 3 (the pad path). Each
+    request bit for bit what the unmeshed detector gives on each replica's
+    share, and the same detections as its whole batch (cuDNN's logits at
+    batch 8 and 16 part by about 7e-8, which may swap two detections whose
+    scores tie to that); the fused-CSP mode on the mesh (K3 on each
+    replica); K1's and K3's launches counted."""
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.models.detector import fused_csp_detector
+    from skyeye_tpu_torch.ops import csp_kernel, nms_kernel
+    from skyeye_tpu_torch.parallel import create_mesh
+
+    t_phase = time.perf_counter()
+    mesh = create_mesh(MULTI_WORLD, devices=["cuda:0"] * MULTI_WORLD)
+    plain = SkyEyeDetector("skyeye_s", img_size=1280, device="cuda")
+    meshed = SkyEyeDetector("skyeye_s", img_size=1280, device="cuda", mesh=mesh)
+    batch, small = frames(seed=40), frames(seed=41, n=3)
+    half = len(batch) // MULTI_WORLD
+    for det in (plain, meshed):
+        det.warmup((TRAIN_BATCH, 3, 1280, 1280))
+    want, plain_ms, _ = serve_timed(plain, batch, [nms_kernel])
+    got, mesh_ms, launches = serve_timed(meshed, batch, [nms_kernel])
+    # the unmeshed detector on each replica's share: what each replica computes
+    shares = []
+    for conf in REQUESTS:
+        plain.conf_thres = conf
+        shares.append([d for k in range(MULTI_WORLD)
+                       for d in plain(batch[k * half:(k + 1) * half]).xyxy])
+    nms_kernel.reset_launch_counts()
+    meshed.conf_thres = plain.conf_thres = 0.001
+    got_small = meshed(small)  # buckets of 2 and 1, each split in two (a pad row in the 1)
+    small_launches = nms_kernel.LAUNCHES["batched_greedy_nms"]
+    want_small = plain(small)
+
+    def bitwise(a, b):
+        return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def index_for_index(x, y):
+        return (x.shape == y.shape and np.array_equal(x[:, 5], y[:, 5])
+                and np.allclose(x[:, :4], y[:, :4], rtol=0, atol=MESH_BOX_ATOL)
+                and np.allclose(x[:, 4], y[:, 4], rtol=0, atol=MESH_SCORE_ATOL))
+
+    def same_detections(x, y):
+        """The same detections, in the same order up to swaps among those whose
+        scores agree within MESH_SCORE_ATOL: each row of x matches one of y."""
+        if x.shape != y.shape or not np.allclose(x[:, 4], y[:, 4], rtol=0,
+                                                 atol=MESH_SCORE_ATOL):
+            return False
+        close = ((x[:, None, 5] == y[None, :, 5])
+                 & (np.abs(x[:, None, :4] - y[None, :, :4]).max(-1) <= MESH_BOX_ATOL)
+                 & (np.abs(x[:, None, 4] - y[None, :, 4]) <= MESH_SCORE_ATOL))
+        taken = np.zeros(len(y), bool)
+        for row in close:
+            free = np.flatnonzero(row & ~taken)
+            if not len(free):
+                return False
+            taken[free[0]] = True
+        return True
+
+    per_share = [bitwise(g.xyxy, s_) for g, s_ in zip(got, shares)]
+    swapped = [[i for i, (x, y) in enumerate(zip(g.xyxy, w.xyxy)) if not index_for_index(x, y)]
+               for g, w in zip(got, want)]
+    same = all(same_detections(x, y) for g, w in zip(got, want) for x, y in zip(g.xyxy, w.xyxy))
+    small_same = all(index_for_index(x, y) for x, y in zip(got_small.xyxy, want_small.xyxy))
+    if not (all(per_share) and same and small_same):
+        fail(f"serve_mesh: detections differ from the unmeshed detector's: each share "
+             f"bitwise {per_share}, the whole batch {same} (images out of order {swapped}), "
+             f"the pad batch {small_same}")
+    for r in got:
+        check_detections(r, (1080, 1920), meshed.config.nc)
+    if launches["batched_greedy_nms"] != MULTI_WORLD * len(REQUESTS):
+        fail(f"serve_mesh: K1 launched {launches['batched_greedy_nms']} times "
+             f"(want {MULTI_WORLD * len(REQUESTS)}: one a share)")
+
+    # the fused-CSP mode on the mesh: K3 on each replica's share
+    plain.model = fused_csp_detector(plain.model)
+    meshed.model = fused_csp_detector(meshed.model)
+    plain.conf_thres = meshed.conf_thres = 0.25
+    want_csp = [d for k in range(MULTI_WORLD) for d in plain(batch[k * half:(k + 1) * half]).xyxy]
+    csp_kernel.reset_launch_counts()
+    nms_kernel.reset_launch_counts()
+    got_csp = meshed(batch)
+    k3_launches = csp_kernel.LAUNCHES["csp_fused_v2"]
+    k1_csp = nms_kernel.LAUNCHES["batched_greedy_nms"]
+    if not bitwise(got_csp.xyxy, want_csp) or k3_launches != MULTI_WORLD:
+        fail(f"serve_mesh: the fused-CSP mode on the mesh differs from its shares or "
+             f"launched K3 {k3_launches} times")
+    emit("serve_mesh", model="skyeye_s", img_size=1280, frames=len(batch), replicas=MULTI_WORLD,
+         devices=[str(d) for d in mesh.devices], requests=REQUESTS,
+         detections=[int(sum(len(d) for d in r.xyxy)) for r in got],
+         equal_to_each_share_bitwise=per_share, same_detections_as_whole_batch=same,
+         whole_batch_images_out_of_order=swapped, pad_batch_index_for_index=small_same,
+         ms_per_request={"mesh": mesh_ms, "unmeshed": plain_ms},
+         k1_launches=launches["batched_greedy_nms"], pad_batch={"frames": len(small),
+                                                               "k1_launches": small_launches},
+         fused_csp={"k3_launches": k3_launches, "k1_launches": k1_csp},
+         note="two replicas share one card: the split's speed across cards is not measured",
+         card=gpu_line, phase_s=time.perf_counter() - t_phase)
+    del plain, meshed
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="serve_mesh",
+                 launches=launches["batched_greedy_nms"] + small_launches + k1_csp),
+            dict(name="csp_fused_v2", path="serve_mesh", launches=k3_launches)]
+
+
 def merge_by_kernel(entries):
     """One entry per kernel: the first one's numbers, ``launches`` summed over
     every path's entry and ``launches_by_path`` listing them."""
@@ -2902,6 +3452,8 @@ def main() -> int:
         summary += phase_train_host_aug(torch, gpu_line, workdir)
         summary += phase_train_remat(torch, gpu_line, workdir)
         summary += phase_evolve(torch, gpu_line, workdir)
+        summary += phase_train_multi(torch, gpu_line, workdir)
+    summary += phase_serve_mesh(torch, gpu_line)
     summary = merge_by_kernel(summary)
     for s in summary:
         kid, replaces, source = KERNELS[s["name"]]

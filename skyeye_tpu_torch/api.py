@@ -12,10 +12,21 @@ the detector was built for; CUDA is the default. ``Results`` draws
 ``data.imageio.imwrite``, as JAX's does with cv2. ``quantize_int8`` turns the
 detector into JAX's int8-neck serving mode (``ops/int8_neck.py``);
 ``model_info`` and ``apply`` are JAX's summary and functional access.
+
+``mesh`` (``parallel.create_mesh`` over local devices, e.g. every card, or
+two replicas on one card) splits serving by batch, as JAX's ``shard_map``
+over the data axis: one replica of the model per device of the mesh (its
+packed int8 or fused-CSP weights prepared on that device), a batch padded
+with copies of its first frame to a multiple of the data axis, and each
+replica running the whole pipeline (letterbox, model, cut, NMS: one K1
+launch per share) on its share, on a host thread and a CUDA stream of its
+own; the shares' detections are concatenated and the pad rows dropped.
 """
 from __future__ import annotations
 
+import copy
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -154,6 +165,11 @@ class SkyEyeDetector:
     top-k, so that cut is exact (JAX's ``approx_topk=False`` late decode);
     ``approx_topk=False`` decodes every anchor and takes one global exact cut.
 
+    ``mesh``: a ``parallel.Mesh`` of local devices (``create_mesh(n_data,
+    devices=...)`` in this process) to split every batch over, one model
+    replica per device; ``device`` is then where frames come in and
+    detections go out.
+
     The port's own: ``state_dict`` (e.g. from
     ``utils.checkpoint.from_jax_variables``) is loaded, strictly, after the
     model is built and before it is folded; ``device`` (CUDA unless the caller
@@ -165,7 +181,7 @@ class SkyEyeDetector:
                  num_classes: Optional[int] = None, img_size: int = 640,
                  conf_thres: float = 0.25, iou_thres: float = 0.45, max_det: int = 300,
                  dtype: torch.dtype = torch.float32, names: Optional[Sequence[str]] = None,
-                 fuse: bool = True, approx_topk: bool = True,
+                 fuse: bool = True, approx_topk: bool = True, mesh=None,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  device: Union[str, torch.device] = "cuda", seed: int = 0):
         self.device = resolve_device(device)
@@ -193,6 +209,14 @@ class SkyEyeDetector:
         # host_to_device, letterbox, model, decode, nms, device_to_host, rescale);
         # a caller that synchronizes in it can time the stages of a real request.
         self.on_stage: Optional[Callable[[str], None]] = None
+        if mesh is not None and mesh.group is not None:
+            raise ValueError("serving takes a mesh of this process's devices "
+                             "(parallel.create_mesh outside a process group)")
+        self.mesh = mesh
+        self._replica_of = None  # the model the replicas were copied from
+        self._replicas: List[torch.nn.Module] = []
+        self._streams: List = []
+        self._pool: Optional[ThreadPoolExecutor] = None
 
     def quantize_int8(self, calib_images, mode: str = "neck") -> "SkyEyeDetector":
         """Post-training int8 quantization of the serving model, as JAX's facade
@@ -254,26 +278,95 @@ class SkyEyeDetector:
         """(B, H, W, 3) uint8 RGB frames on the detector's device ->
         ((B, max_det, 6) detections in letterboxed pixels, (B,) counts).
         ``class_mask`` (nc,) bool on that device keeps only the classes it marks
-        (``cli.detect --classes``)."""
-        x = (letterbox_batch(frames, out_shape) / 255.0).to(self.model.dtype)
-        self._stage("letterbox")
-        outs = self.model(x.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
-        self._stage("model")
+        (``cli.detect --classes``). With a mesh, split over its replicas (the
+        ``on_stage`` hook then sees only "nms", once every share is done)."""
+        if self.mesh is not None:
+            return self._infer_sharded(frames, out_shape, multi_label, agnostic, class_mask)
+        return self._infer_on(self.model, frames, out_shape, multi_label, agnostic, class_mask,
+                              self._stage)
+
+    def _replica_models(self) -> List[torch.nn.Module]:
+        """One model per device of the mesh, copied from ``self.model`` (again
+        whenever the model was replaced, as by ``quantize_int8``); the first
+        device's is the model itself where it already lies there."""
+        from .ops.fused_csp import FusedCSPBlock
+
+        if self._replica_of is not self.model:
+            reps = []
+            for i, dev in enumerate(self.mesh.devices):
+                here = next(self.model.parameters()).device == dev
+                m = self.model if i == 0 and here else copy.deepcopy(self.model).to(dev).eval()
+                for blk in m.modules():
+                    if isinstance(blk, FusedCSPBlock) and m is not self.model:
+                        blk.prepare()  # K3's packed weights, on this replica's device
+                reps.append(m)
+            self._replicas, self._replica_of = reps, self.model
+        return self._replicas
+
+    def _infer_sharded(self, frames, out_shape, multi_label, agnostic, class_mask):
+        n = self.mesh.size
+        B = frames.shape[0]
+        pad = (-B) % n
+        if pad:  # copies of the first frame; their rows are dropped below
+            frames = torch.cat([frames, frames[:1].expand(pad, *frames.shape[1:])])
+        shares = frames.chunk(n)
+        models = self._replica_models()
+        devices = self.mesh.devices
+        cuda = frames.is_cuda
+        main_stream = torch.cuda.current_stream(frames.device) if cuda else None
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(n, thread_name_prefix="skyeye-replica")
+            self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                             for d in devices]
+
+        def run(i):
+            with torch.inference_mode():
+                dev, stream = devices[i], self._streams[i]
+                mask = class_mask.to(dev) if class_mask is not None else None
+                if stream is None:
+                    return self._infer_on(models[i], shares[i].to(dev), out_shape, multi_label,
+                                          agnostic, mask, None)
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    if main_stream is not None:
+                        stream.wait_stream(main_stream)  # the frames are written
+                    out = self._infer_on(models[i], shares[i].to(dev, non_blocking=True),
+                                         out_shape, multi_label, agnostic, mask, None)
+                stream.synchronize()
+                return out
+
+        outs = list(self._pool.map(run, range(n)))
+        dets, counts = [], []
+        for det, cnt in outs:
+            if det.is_cuda and cuda and det.device == frames.device:
+                det.record_stream(main_stream)  # made on the replica's stream, read here
+                cnt.record_stream(main_stream)
+            dets.append(det.to(frames.device))
+            counts.append(cnt.to(frames.device))
+        self._stage("nms")
+        return torch.cat(dets)[:B], torch.cat(counts)[:B]
+
+    def _infer_on(self, model, frames, out_shape, multi_label, agnostic, class_mask, stage):
+        """The pipeline on one model and the frames on its device."""
+        stage = stage or (lambda name: None)
+        x = (letterbox_batch(frames, out_shape) / 255.0).to(model.dtype)
+        stage("letterbox")
+        outs = model(x.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
+        stage("model")
         max_nms = serving_max_nms(self.conf_thres)
         if self.approx_topk and not multi_label:
             cut = topk_candidates(outs, self.config.anchors, out_shape,
                                   conf_thres=self.conf_thres, max_nms=max_nms,
                                   class_mask=class_mask)
-            self._stage("decode")  # the cut on the logits and the survivors' decode
+            stage("decode")  # the cut on the logits and the survivors' decode
             out = suppress_candidates_batched(*cut, iou_thres=self.iou_thres,
                                               max_det=self.max_det, agnostic=agnostic)
         else:
             dec = decode_predictions(outs, self.config.anchors, out_shape, anchor_major=False)
-            self._stage("decode")
+            stage("decode")
             out = nms_batched(dec, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
                               multi_label=multi_label, agnostic=agnostic,
                               max_det=self.max_det, max_nms=max_nms, class_mask=class_mask)
-        self._stage("nms")
+        stage("nms")
         return out
 
     def warmup(self, imgsz: Tuple[int, int, int, int] = (1, 3, 640, 640)) -> None:

@@ -22,8 +22,19 @@ runs N generations of short trainings over the same arguments
 (``train/evolve.py``): ``<project>/evolve/evolve.csv`` and
 ``hyp_evolved.yaml``.
 
-Not ported: ``fsdp`` and ``spatial_shards > 1`` (multi-device) raise
-NotImplementedError with their ROADMAP item. ``packed_stem`` is a TPU
+Multi-device, as JAX: the data axis is the largest divisor of the batch that
+fits the visible cards; with more than one, ``train`` starts one worker
+process per card (``parallel/launch.py``, NCCL) and each runs the same
+``train`` in the process group. Under ``torchrun`` (or any process group
+already joined) the group's world size is the data axis, and a batch it
+does not divide raises. Each rank loads its share of every global batch,
+the step is the data-parallel step (``train/trainer.py``: synced
+BatchNorm, the global batch's loss normalisers, summed gradients), and
+``fsdp`` shards the training state (``parallel/fsdp.py``). Rank 0 makes the
+run directory, validates on the EMA weights and writes ``results.csv`` and
+the checkpoints; the others wait for its fitness, so every rank stops at the
+same epoch. ``spatial_shards > 1`` raises NotImplementedError (ROADMAP
+item 8b). ``packed_stem`` is a TPU
 lane remap of the stem that JAX calls numerically equivalent: the port trains
 the canonical stem for either value (ROADMAP Queue 1 item 9). The figures of
 ``plot_results`` are not drawn (a warning; the plotting slice, Queue 1 item 15).
@@ -37,6 +48,7 @@ import argparse
 import copy
 import csv
 import dataclasses
+import inspect
 import os
 import time
 from functools import partial
@@ -45,6 +57,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import dump_flat_yaml, load_hyp, load_model_config
 from ..losses import ComputeLoss
@@ -66,10 +79,6 @@ RESULTS_HEADER = [
     "metrics/precision", "metrics/recall", "metrics/mAP_0.5", "metrics/mAP_0.5:0.95",
     "val/box_loss", "val/obj_loss", "val/cls_loss", "lr",
 ]
-
-
-def _not_ported(opt: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{opt} is not ported (ROADMAP.md, Queue 1 {item})")
 
 
 def train(
@@ -139,28 +148,57 @@ def train(
                           save_dir=evolve_dir, seed=seed)
         (evolve_dir / "hyp_evolved.yaml").write_text(dump_flat_yaml(best))
         return None, evolve_dir
-    if fsdp or spatial_shards > 1:
-        raise _not_ported("multi-device training (fsdp, spatial_shards > 1)", "item 8")
+    if spatial_shards > 1:
+        from ..parallel.mesh import spatial_not_ported
+
+        raise spatial_not_ported()
+    if not dist.is_initialized():
+        from ..parallel.launch import launch, under_torchrun
+
+        n_data = _data_axis(batch_size, device)
+        if n_data > 1 or under_torchrun():
+            args = {k: v for k, v in locals().items() if k in _TRAIN_ARGS}
+            on_cpu = torch.device(device).type == "cpu"
+            return launch(train, n_data, kwargs=args, backend="gloo" if on_cpu else None,
+                          device="cpu" if on_cpu else None)[0]
     from ..data.dataset import create_dataloader
     from ..data.device_aug import augment_batch_device
     from ..data.prefetch import device_prefetch
     from ..models.detector import create_detector
     from .validate import validate
 
-    # -- run dir + config dump
-    save_dir = increment_path(Path(project) / name, exist_ok=exist_ok or resume, mkdir=True)
-    wdir = save_dir / "weights"
-    wdir.mkdir(parents=True, exist_ok=True)
-    hyp_dict = load_hyp(hyp)
-    (save_dir / "hyp.yaml").write_text(dump_flat_yaml(hyp_dict))
+    from ..parallel import (
+        create_mesh, is_main_process, jit_fsdp_step, local_batch_size, replicate_multihost,
+        shard_train_state,
+    )
+    from ..parallel.collectives import broadcast_object
+    from ..parallel.fsdp import full_tensors
+
     opt_dump = {k: v for k, v in locals().items() if isinstance(v, (int, float, str, bool))}
-    (save_dir / "opt.yaml").write_text(dump_flat_yaml(opt_dump))
+    main = is_main_process()
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:  # a worker's own card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = create_mesh(devices=[dev]) if dist.is_initialized() else None
+    rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    if mesh is not None:
+        local_batch_size(batch_size, mesh)  # JAX's error where the world does not divide
+
+    # -- run dir + config dump (rank 0 names it)
+    save_dir = (increment_path(Path(project) / name, exist_ok=exist_ok or resume, mkdir=True)
+                if main else None)
+    save_dir = Path(broadcast_object(str(save_dir) if main else None))
+    wdir = save_dir / "weights"
+    hyp_dict = load_hyp(hyp)
+    if main:
+        wdir.mkdir(parents=True, exist_ok=True)
+        (save_dir / "hyp.yaml").write_text(dump_flat_yaml(hyp_dict))
+        (save_dir / "opt.yaml").write_text(dump_flat_yaml(opt_dump))
     print_args(opt_dump)
     if debug_nans:  # stop at the first NaN with a traceback of the forward that made it
         torch.autograd.set_detect_anomaly(True)
 
     init_seeds(seed)
-    dev = resolve_device(device)
     data_cfg = check_dataset(data)
     nc = data_cfg.nc
 
@@ -189,7 +227,7 @@ def train(
     train_loader, train_ds = create_dataloader(
         data_cfg.train, img_size=img_size, batch_size=batch_size, stride=stride,
         augment=not device_aug, hyp=hyp_dict, workers=workers, max_labels=max_labels,
-        cache_images=cache_images, seed=seed, shuffle=True,
+        cache_images=cache_images, seed=seed, shuffle=True, rank=rank, world=world,
     )
     steps_per_epoch = len(train_loader)
     labels_to_class_weights(train_ds.labels, nc)
@@ -238,18 +276,27 @@ def train(
                 train_loader.rng.shuffle(np.arange(len(train_ds)))
             LOGGER.info("resumed from %s at epoch %d", last, start_epoch)
 
+    if mesh is not None:  # every rank starts from rank 0's state (the same seed's)
+        model.load_state_dict(replicate_multihost(mesh, model.state_dict()))
     aug_fn = (partial(augment_batch_device, hyp=hyp_dict,
                       use_mosaic=hyp_dict.get("mosaic", 1.0) > 0) if device_aug else None)
-    step_fn = make_train_step(model, loss_fn, tx, device_augment=aug_fn)
+    step_fn = make_train_step(model, loss_fn, tx, device_augment=aug_fn, mesh=mesh)
     eval_model = copy.deepcopy(model).eval()  # validation loads the EMA weights into it
+    if fsdp and mesh is not None:
+        # ZeRO-3: parameters, momenta and EMA sharded over the data axis
+        shard_train_state(mesh, state)
+        step_fn = jit_fsdp_step(step_fn, mesh, state)
+        LOGGER.info("FSDP: training state sharded over the data axis (%d-way)", world)
+    elif fsdp:
+        LOGGER.info("FSDP: a data axis of 1 has nothing to shard; training unsharded")
     stopper = EarlyStopping(patience=patience)
     results_file = save_dir / "results.csv"
-    if not results_file.exists():
+    if main and not results_file.exists():
         with open(results_file, "w", newline="") as f:
             csv.writer(f).writerow(RESULTS_HEADER)
 
-    LOGGER.info("starting training for %d epochs (accumulate=%d, device=%s)",
-                epochs, accumulate, dev)
+    LOGGER.info("starting training for %d epochs (accumulate=%d, device=%s, data axis %d)",
+                epochs, accumulate, dev, world)
     final_results = (0, 0, 0, 0, 0, 0, 0)
     py_step = int(state.step)
     for epoch in range(start_epoch, epochs):
@@ -273,16 +320,21 @@ def train(
 
         results = (0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
         if not noval and data_cfg.val:
-            results, _, _ = validate(
-                data_cfg, batch_size=batch_size, img_size=img_size,
-                model=(eval_model, ema_weights(state.ema, state.model)), plots=False,
-                save_dir=save_dir, compute_loss=loss_fn, device=dev,
-            )
+            weights_now = full_tensors(ema_weights(state.ema, state.model))  # every rank
+            if main:
+                results, _, _ = validate(
+                    data_cfg, batch_size=batch_size, img_size=img_size,
+                    model=(eval_model, weights_now), plots=False,
+                    save_dir=save_dir, compute_loss=loss_fn, device=dev,
+                )
+            if mesh is not None:  # rank 0's figures, so every rank stops alike
+                results = tuple(broadcast_object(tuple(float(r) for r in results)))
         fit = fitness({"map50": results[2], "map": results[3]})
         best_fit = max(best_fit, fit)
         final_results = results
-        with open(results_file, "a", newline="") as f:
-            csv.writer(f).writerow([epoch, *mloss, *results[:4], *results[4:7], lr_now])
+        if main:
+            with open(results_file, "a", newline="") as f:
+                csv.writer(f).writerow([epoch, *mloss, *results[:4], *results[4:7], lr_now])
 
         # last every epoch (every save_period with noval, and the final one); best
         # by fitness
@@ -299,10 +351,21 @@ def train(
                         epoch + 1, patience)
             break
 
-    LOGGER.warning("results.png not drawn from %s: plot_results belongs to the "
-                   "plotting slice (ROADMAP.md, Queue 1 item 15)", results_file)
+    if main:
+        LOGGER.warning("results.png not drawn from %s: plot_results belongs to the "
+                       "plotting slice (ROADMAP.md, Queue 1 item 15)", results_file)
     LOGGER.info("training complete; best fitness %.4f; weights in %s", best_fit, wdir)
     return final_results, save_dir
+
+
+def _data_axis(batch_size: int, device) -> int:
+    """JAX's data axis: the largest divisor of the batch that fits the visible
+    cards (1 on the CPU)."""
+    n_dev = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    return max(d for d in range(1, min(max(n_dev, 1), batch_size) + 1) if batch_size % d == 0)
+
+
+_TRAIN_ARGS = tuple(inspect.signature(train).parameters)
 
 
 def parse_opt(argv=None):
@@ -327,8 +390,10 @@ def parse_opt(argv=None):
     p.add_argument("--noval", action="store_true")
     p.add_argument("--cache-images", action="store_true")
     p.add_argument("--half", action="store_true", help="bfloat16 activations")
-    p.add_argument("--spatial-shards", type=int, default=1, help="not ported (multi-device)")
-    p.add_argument("--fsdp", action="store_true", help="not ported (multi-device)")
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="not ported: more than 1 raises (ROADMAP item 8b)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard parameters, momenta and EMA over the data axis (FSDP)")
     p.add_argument("--debug-nans", action="store_true",
                    help="stop at the first NaN (torch.autograd.set_detect_anomaly)")
     p.add_argument("--evolve", type=int, nargs="?", const=10, default=0,

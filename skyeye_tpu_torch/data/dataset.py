@@ -25,7 +25,12 @@ Port of ``skyeye_tpu/data/dataset.py``:
     pool ahead of the consumer; a short last batch is padded by repeating its
     images, as JAX pads it (only ``n_valid`` rows count); with ``shuffle`` the
     order is JAX's (``np.random.default_rng(seed)`` shuffles once an epoch);
-    ``InfiniteBatchLoader`` runs epoch after epoch.
+    ``InfiniteBatchLoader`` runs epoch after epoch. In a data-parallel run
+    (``rank``, ``world``) every rank shuffles the global order and takes every
+    item's draws, and assembles only its share of each global batch (rows
+    ``rank * B / world`` on, wrap-around copies included); the ranks' shares,
+    concatenated, are the single-process batch, and ``n_valid`` counts the
+    global batch's valid rows.
 
 An item is drawn, then rendered: ``AerialDataset.draw`` takes every random
 number the item needs (they never depend on pixels) from the dataset's
@@ -441,9 +446,15 @@ class BatchLoader:
         drop_last: bool = False,
         seed: int = 0,
         bgr_to_rgb: bool = True,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} not divisible by data axis {world}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
+        self.local_batch = batch_size // world
         self.shuffle = shuffle
         self.workers = workers
         self.prefetch = prefetch
@@ -463,22 +474,27 @@ class BatchLoader:
         t, m = self.dataset.padded_labels(labels)
         return np.ascontiguousarray(img), t, m
 
-    def _assemble(self, idxs: Sequence[int], futures) -> Dict[str, np.ndarray]:
-        imgs, tgts, masks = (list(col) for col in zip(*(f.result() for f in futures)))
-        # a short last batch is filled with its own images again (JAX keeps one
-        # compiled shape this way); consumers read only the n_valid first rows
-        n_valid = len(imgs)
-        while len(imgs) < self.batch_size:
-            j = (len(imgs) - n_valid) % n_valid
-            imgs.append(imgs[j])
-            tgts.append(tgts[j])
-            masks.append(masks[j])
+    def _rows(self, n_valid: int) -> List[int]:
+        """The items (positions in a global batch of ``n_valid`` items) of this
+        rank's rows. A short last batch is filled with its own items again (JAX
+        keeps one compiled shape this way); consumers read only the n_valid
+        first rows of the global batch."""
+        lo = self.rank * self.local_batch
+        return [j if j < n_valid else (j - n_valid) % n_valid
+                for j in range(lo, lo + self.local_batch)]
+
+    def _assemble(self, idxs: Sequence[int], rows: List[int], futures) -> Dict[str, np.ndarray]:
+        items = {k: f.result() for k, f in futures.items()}
+        imgs, tgts, masks = zip(*(items[k] for k in rows))
+        n_valid = len(idxs)
+        lo = self.rank * self.local_batch
         return {
             "images": np.stack(imgs),
             "targets": np.stack(tgts),
             "mask": np.stack(masks),
             "n_valid": np.asarray(n_valid, np.int32),
-            "indices": np.asarray(list(idxs) + [-1] * (self.batch_size - n_valid)),
+            "indices": np.asarray([idxs[k] if lo + j < n_valid else -1
+                                   for j, k in enumerate(rows)]),
         }
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -509,13 +525,16 @@ class BatchLoader:
             # items are drawn here, in order, and rendered on the workers; a batch's
             # frames are spread over the workers and submitted at most
             # prefetch + 1 batches ahead of the queue, so the host holds a bounded
-            # number of decoded frames
+            # number of decoded frames. Every item of the global batch is drawn (the
+            # draws are one stream); only this rank's rows are rendered
             ex = ThreadPoolExecutor(self.workers)
             try:
                 pending: Deque = deque()
                 for idxs in batches:
-                    pending.append((idxs, [ex.submit(self._item, self.dataset.draw(i))
-                                           for i in idxs]))
+                    draws = [self.dataset.draw(i) for i in idxs]
+                    rows = self._rows(len(idxs))
+                    pending.append((idxs, rows, {k: ex.submit(self._item, draws[k])
+                                                 for k in dict.fromkeys(rows)}))
                     if len(pending) > self.prefetch and (
                             closed.is_set() or not put(self._assemble(*pending.popleft()))):
                         return
@@ -556,8 +575,12 @@ def create_dataloader(
     max_labels: int = 300,
     seed: int = 0,
     shape_buckets: Optional[int] = None,
+    rank: int = 0,
+    world: int = 1,
 ) -> Tuple[BatchLoader, AerialDataset]:
-    """(loader, dataset), JAX's ``create_dataloader`` signature."""
+    """(loader, dataset), JAX's ``create_dataloader`` signature; ``rank`` and
+    ``world``: the loader yields this rank's share of each global batch of
+    ``batch_size``."""
     dataset = AerialDataset(
         path, img_size=img_size, batch_size=batch_size, augment=augment, hyp=hyp,
         rect=rect, stride=stride, pad=pad, cache_images=cache_images,
@@ -566,7 +589,7 @@ def create_dataloader(
     loader = BatchLoader(
         dataset, batch_size=batch_size,
         shuffle=(augment if shuffle is None else shuffle) and not rect,
-        workers=workers, seed=seed,
+        workers=workers, seed=seed, rank=rank, world=world,
     )
     return loader, dataset
 

@@ -18,6 +18,11 @@ the apply functions compute what JAX computes.
   * mixup: Beta(8, 8) blend with the batch rolled by B // 2, labels
     concatenated (M -> 2M);
   * HSV gains, and horizontal and vertical flips.
+
+In a data-parallel step each rank holds the whole batch's frames (gathered)
+and the whole batch's draws (every rank draws from the same generator), and
+renders only its own ``rows``: their mosaics read whichever frames they need,
+and mixup's partners (rows i - B // 2) are rendered beside them.
 """
 from __future__ import annotations
 
@@ -144,12 +149,18 @@ def inverse_affine(d: Dict[str, torch.Tensor], s: int) -> Tuple[torch.Tensor, to
 
 
 def apply_mosaic_affine(images: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
-                        d: Dict[str, torch.Tensor]):
+                        d: Dict[str, torch.Tensor], rows: Optional[torch.Tensor] = None):
     """images (B, s, s, 3) float [0, 1]; targets (B, M, 6); mask (B, M) ->
-    (images (B, s, s, 3), targets (B, 4M, 6), mask (B, 4M))."""
+    (images (R, s, s, 3), targets (R, 4M, 6), mask (R, 4M)) for the batch's rows
+    ``rows`` (R indices; default all B, in order)."""
     B, s = images.shape[0], images.shape[1]
     M_t = targets.shape[1]
     dev = images.device
+    if rows is None:
+        rows = torch.arange(B, device=dev)
+    else:
+        d = {k: v[rows] for k, v in d.items()}
+    R = rows.shape[0]
     gate = d["gate"]
     cyx = torch.where(gate[:, None], d["center"], torch.tensor(float(s), device=dev))
     yc, xc = cyx[:, 0, None, None], cyx[:, 1, None, None]                  # (B, 1, 1)
@@ -171,7 +182,7 @@ def apply_mosaic_affine(images: torch.Tensor, targets: torch.Tensor, mask: torch
 
     # one bilinear sample from the quadrant's image (JAX samples all four and
     # selects: the same value)
-    src = (torch.arange(B, device=dev)[:, None, None] + quad) % B
+    src = (rows[:, None, None] + quad) % B
     y0 = torch.floor(ly).clamp(0, s - 1)
     x0 = torch.floor(lx).clamp(0, s - 1)
     y1 = (y0 + 1).clamp(0, s - 1)
@@ -191,8 +202,8 @@ def apply_mosaic_affine(images: torch.Tensor, targets: torch.Tensor, mask: torch
                       torch.tensor(PAD / 255.0, device=dev))
 
     # labels: normalised xywh -> canvas xyxy -> forward affine -> candidate filter
-    idx = (torch.arange(B, device=dev)[:, None] + torch.arange(4, device=dev)[None]) % B
-    t = targets[idx]                                                        # (B, 4, M, 6)
+    idx = (rows[:, None] + torch.arange(4, device=dev)[None]) % B
+    t = targets[idx]                                                        # (R, 4, M, 6)
     offs = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]], device=dev)
     origin_x = (cyx[:, 1, None] - s) + offs[None, :, 0] * s                 # (B, 4)
     origin_y = (cyx[:, 0, None] - s) + offs[None, :, 1] * s
@@ -216,7 +227,7 @@ def apply_mosaic_affine(images: torch.Tensor, targets: torch.Tensor, mask: torch
     keep = keep & (gate[:, None, None] | (torch.arange(4, device=dev) == 0)[None, :, None])
     out_t = torch.stack([torch.zeros_like(nx1), t[..., 1], (nx1 + nx2) / 2 / s,
                          (ny1 + ny2) / 2 / s, nw / s, nh / s], dim=-1)
-    return out, out_t.reshape(B, 4 * M_t, 6), keep.reshape(B, 4 * M_t)
+    return out, out_t.reshape(R, 4 * M_t, 6), keep.reshape(R, 4 * M_t)
 
 
 def mosaic_affine_batch(images, targets, mask, generator, hyp: Optional[Dict] = None,
@@ -238,16 +249,23 @@ def draw_mixup(batch: int, p: float, generator, device) -> Dict[str, torch.Tenso
     return {"lam": lam, "do": _uniform((batch,), 0.0, 1.0, generator, device) < p}
 
 
-def apply_mixup(images, targets, mask, d):
-    B = images.shape[0]
+def mixup_shift(batch: int) -> int:
+    """Mixup's partner of row i is row i - shift (the batch rolled by B // 2)."""
+    return batch // 2 or 1
+
+
+def _blend(images, targets, mask, partner, t2, m2, d):
     lam = torch.where(d["do"], d["lam"], torch.ones_like(d["lam"]))
-    shift = B // 2 or 1
-    partner = torch.roll(images, shift, dims=0)
     lam4 = lam[:, None, None, None]
     blended = images * lam4 + partner * (1.0 - lam4)
-    t2 = torch.roll(targets, shift, dims=0)
-    m2 = torch.roll(mask, shift, dims=0) & d["do"][:, None]
+    m2 = m2 & d["do"][:, None]
     return blended, torch.cat([targets, t2], dim=1), torch.cat([mask, m2], dim=1)
+
+
+def apply_mixup(images, targets, mask, d):
+    shift = mixup_shift(images.shape[0])
+    return _blend(images, targets, mask, torch.roll(images, shift, dims=0),
+                  torch.roll(targets, shift, dims=0), torch.roll(mask, shift, dims=0), d)
 
 
 def mixup_batch(images, targets, mask, generator, p: float = 1.0):
@@ -295,23 +313,42 @@ def draw_augmentation(batch: int, s: int, hyp: Dict, generator, device,
     return draws
 
 
-def apply_augmentation(images, targets, mask, draws, hyp: Optional[Dict] = None):
+def apply_augmentation(images, targets, mask, draws, hyp: Optional[Dict] = None,
+                       rows: Optional[torch.Tensor] = None):
     """JAX's ``augment_batch_device`` on given draws: the fused mosaic/affine
     (always: per image mosaic or the single-image affine), mixup when drawn,
-    HSV, flips. Returns (images, targets (B, M', 6), mask (B, M'))."""
+    HSV, flips. Returns (images, targets (B, M', 6), mask (B, M')); with
+    ``rows`` (R indices of the batch), only those rows, (R, ...), each equal to
+    its row of the whole batch's result."""
     hyp = {**DEFAULT_HYP, **(hyp or {})}
-    images, targets, mask = apply_mosaic_affine(images, targets, mask, draws["mosaic_affine"])
-    if "mixup" in draws:
-        images, targets, mask = apply_mixup(images, targets, mask, draws["mixup"])
-    images = apply_hsv(images, draws["hsv"], hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"])
-    images, targets = apply_flip(images, targets, draws["flip"])
+    if rows is None:
+        images, targets, mask = apply_mosaic_affine(images, targets, mask,
+                                                    draws["mosaic_affine"])
+        if "mixup" in draws:
+            images, targets, mask = apply_mixup(images, targets, mask, draws["mixup"])
+        hsv, flip = draws["hsv"], draws["flip"]
+    else:
+        B, R = images.shape[0], rows.shape[0]
+        need = rows
+        if "mixup" in draws:  # the partners' mosaics too
+            need = torch.cat([rows, (rows - mixup_shift(B)) % B])
+        images, targets, mask = apply_mosaic_affine(images, targets, mask,
+                                                    draws["mosaic_affine"], rows=need)
+        if "mixup" in draws:
+            images, targets, mask = _blend(
+                images[:R], targets[:R], mask[:R], images[R:], targets[R:], mask[R:],
+                {k: v[rows] for k, v in draws["mixup"].items()})
+        hsv, flip = draws["hsv"][rows], {k: v[rows] for k, v in draws["flip"].items()}
+    images = apply_hsv(images, hsv, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"])
+    images, targets = apply_flip(images, targets, flip)
     return images, targets, mask
 
 
 def augment_batch_device(images, targets, mask, generator, hyp: Optional[Dict] = None,
-                         use_mosaic: bool = True):
+                         use_mosaic: bool = True, rows: Optional[torch.Tensor] = None):
     """The train step's augmentation: images (B, s, s, 3) float [0, 1], targets
-    (B, M, 6), mask (B, M), drawn from ``generator``."""
+    (B, M, 6), mask (B, M), drawn from ``generator``; with ``rows``, only those
+    rows of the result (the whole batch's draws are taken all the same)."""
     draws = draw_augmentation(images.shape[0], images.shape[1], hyp, generator,
                               images.device, use_mosaic)
-    return apply_augmentation(images, targets, mask, draws, hyp)
+    return apply_augmentation(images, targets, mask, draws, hyp, rows=rows)

@@ -8,6 +8,9 @@ its own. The consumer's stream waits on the copy's event before the batch is
 handed over, so compute never reads a tensor still in flight; a pinned buffer
 is refilled only after the copy out of it has completed (its event), so a copy
 never reads a buffer being refilled. On the CPU the arrays become tensors and nothing is copied.
+``device="cuda"`` means the caller's current card (a data-parallel worker's
+own): the producer thread, whose current card is the first, copies to it on
+a copy stream of that card.
 """
 from __future__ import annotations
 
@@ -74,6 +77,8 @@ def device_prefetch(iterator: Iterable, size: int = 2, device="cuda",
     """
     device = torch.device(device)
     cuda = device.type == "cuda"
+    if cuda and device.index is None:  # the current card is per thread: fix it here
+        device = torch.device("cuda", torch.cuda.current_device())
     q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
     stop = object()
     err: list = []

@@ -11,6 +11,15 @@ float32 (float64 for float64 logits, a reference on the card).
 Where JAX gathers out of range it clamps, and where it scatters out of range it
 drops: the port clamps the gather indices and sends a dropped row to a trash
 row past the batch, sliced off after the scatter.
+
+Every term divides by a sum over the whole batch (the assignments' weights,
+the images' weights or the row count). In a data-parallel step
+(``parallel.collectives.data_parallel``) each rank holds some of the batch's
+rows: it sums its numerators over its own rows and divides by the global
+sums, all-reduced in one collective before any term is formed. The ranks'
+partial losses then sum to the loss of the global batch, JAX's loss under
+GSPMD, and so do their gradients; a rank that holds no targets contributes
+its objectness term and nothing else.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch.nn.functional as F
 
 from ..config import DEFAULT_HYP
 from ..ops.boxes import bbox_iou
+from ..parallel.collectives import all_reduce_sum, current_group
 
 
 def smooth_bce(eps: float = 0.1) -> Tuple[float, float]:
@@ -50,15 +60,35 @@ def modulated_bce(pred, target, alpha: float = 0.05):
     return bce * (1.0 - torch.exp(-(target - p).abs() / alpha))
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-9,
+                mask_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean of x over the mask's entries, the mask broadcast over x's trailing
-    axes: sum(x * mask) / max(sum(mask) * x.size / mask.size, eps)."""
+    axes: sum(x * mask) / max(sum(mask) * x.size / mask.size, eps).
+    ``mask_sum``, where given, stands for sum(mask) (the global batch's, in a
+    data-parallel step)."""
     mask = mask.to(x.dtype)
     size = mask.numel()
     while mask.dim() < x.dim():
         mask = mask[..., None]
-    denom = mask.sum() * (x.numel() / size if size else 1.0)
+    total = mask.sum() if mask_sum is None else mask_sum.to(x.dtype)
+    denom = total * (x.numel() / size if size else 1.0)
     return (x * mask).sum() / denom.clamp(min=eps)
+
+
+def _global_sums(local) -> Optional[torch.Tensor]:
+    """The sums ``local`` (a list of 0-d tensors) over the data-parallel group,
+    in one collective; None outside a data-parallel step."""
+    if current_group() is None:
+        return None
+    return all_reduce_sum(torch.stack([t.float() for t in local]))
+
+
+def _mean_over_batch(x: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """x.mean(), or, given the global batch's row count, sum(x) over this rank's
+    rows divided by the global batch's element count."""
+    if rows is None:
+        return x.mean()
+    return x.sum() / (rows.to(x.dtype) * (x.numel() // x.shape[0]))
 
 
 # The neighbour offsets: centre, left, up, right, down (scaled by _G).
@@ -164,7 +194,7 @@ class ComputeLoss:
             return focal_loss(pred, target, gamma=self.gamma, alpha=0.25)
         return bce_with_logits(pred, target)
 
-    def _level_dense(self, pi, asg, w, i, img_weight, anchors):
+    def _level_dense(self, pi, asg, w, i, img_weight, anchors, w_sum=None, img_sum=None):
         B, H, W, na, _ = pi.shape
         dev = pi.device
         wide = torch.promote_types(pi.dtype, torch.float32)
@@ -186,15 +216,15 @@ class ComputeLoss:
         pxy = torch.sigmoid(pi[..., 0:2].to(wide)) * 2.0 - 0.5
         pwh = (torch.sigmoid(pi[..., 2:4].to(wide)) * 2.0) ** 2 * awh
         iou = bbox_iou(torch.cat([pxy, pwh], dim=-1), tbox, format="xywh", iou_type="ciou")
-        wsum = w_map.sum().clamp(min=1e-9)
+        wsum = (w_map.sum() if w_sum is None else w_sum.to(w_map.dtype)).clamp(min=1e-9)
         lbox = ((1.0 - iou) * w_map).sum() / wsum
 
         score_iou = torch.where(pos, iou.detach().clamp(min=0.0), torch.zeros_like(iou))
         obj_bce = self._cls_obj_bce(pi[..., 4].to(wide), score_iou)
         if img_weight is not None:
-            lobj = masked_mean(obj_bce, img_weight) * self.balance[i]
+            lobj = masked_mean(obj_bce, img_weight, mask_sum=img_sum) * self.balance[i]
         else:
-            lobj = obj_bce.mean() * self.balance[i]
+            lobj = _mean_over_batch(obj_bce, img_sum) * self.balance[i]
 
         lcls = torch.zeros((), dtype=wide, device=dev)
         if self.nc > 1:
@@ -216,17 +246,28 @@ class ComputeLoss:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         lbox, lobj, lcls = zero, zero, zero
 
+        levels = []  # the assignments first: the normalisers are sums over them
         for i, pi in enumerate(predictions):
             B, H, W, na, _ = pi.shape
             asg = build_targets_level(targets, mask, anchors[i], (H, W), self.hyp["anchor_t"])
-            b, a, gj, gi, m = asg["b"], asg["a"], asg["gj"], asg["gi"], asg["mask"]
-            b_in = b.clamp(0, B - 1)
-            w = m.float()
+            b_in = asg["b"].clamp(0, B - 1)
+            w = asg["mask"].float()
             if img_weight is not None:
                 w = w * img_weight[b_in]
+            levels.append((asg, b_in, w))
+        rows = (img_weight.sum() if img_weight is not None
+                else torch.tensor(float(predictions[0].shape[0]), device=dev))
+        sums = _global_sums([w.sum() for _, _, w in levels] + [rows])
+        img_sum = sums[-1] if sums is not None else None
+
+        for i, pi in enumerate(predictions):
+            B, H, W, na, _ = pi.shape
+            asg, b_in, w = levels[i]
+            b, a, gj, gi, m = asg["b"], asg["a"], asg["gj"], asg["gi"], asg["mask"]
+            w_sum = sums[i] if sums is not None else None
 
             if self.dense:
-                lb, lo, lc = self._level_dense(pi, asg, w, i, img_weight, anchors)
+                lb, lo, lc = self._level_dense(pi, asg, w, i, img_weight, anchors, w_sum, img_sum)
                 lbox, lobj, lcls = lbox + lb, lobj + lo, lcls + lc
                 continue
 
@@ -236,7 +277,7 @@ class ComputeLoss:
             pwh = (torch.sigmoid(ps[:, 2:4]) * 2.0) ** 2 * asg["anchor_wh"]
             iou = bbox_iou(torch.cat([pxy, pwh], dim=1), asg["tbox"], format="xywh",
                            iou_type="ciou")
-            lbox = lbox + masked_mean(1.0 - iou, w)
+            lbox = lbox + masked_mean(1.0 - iou, w, mask_sum=w_sum)
 
             # objectness target: the detached IoU, the largest where assignments collide
             score_iou = iou.detach().clamp(min=0.0)
@@ -246,13 +287,13 @@ class ComputeLoss:
             tobj = tobj[: B * H * W * na].reshape(B, H, W, na)
             obj_bce = self._cls_obj_bce(pi[..., 4].to(wide), tobj)
             if img_weight is not None:
-                lobj = lobj + masked_mean(obj_bce, img_weight) * self.balance[i]
+                lobj = lobj + masked_mean(obj_bce, img_weight, mask_sum=img_sum) * self.balance[i]
             else:
-                lobj = lobj + obj_bce.mean() * self.balance[i]
+                lobj = lobj + _mean_over_batch(obj_bce, img_sum) * self.balance[i]
 
             if self.nc > 1:
                 t_cls = _one_hot_where(asg["cls"], self.nc, self.cp, self.cn)
-                lcls = lcls + masked_mean(self._cls_obj_bce(ps[:, 5:], t_cls), w)
+                lcls = lcls + masked_mean(self._cls_obj_bce(ps[:, 5:], t_cls), w, mask_sum=w_sum)
 
         lbox = lbox * self.hyp["box"]
         lobj = lobj * self.hyp["obj"]
@@ -275,6 +316,16 @@ class AerialDetectionLoss:
         self.scales = scales
         self.iou_thres = iou_thres
 
+    def _assign(self, t: torch.Tensor, mask: torch.Tensor, awh: torch.Tensor, H: int, W: int):
+        twh = t[:, 4:6]
+        inter = torch.minimum(twh[:, None, :], awh[None, :, :]).prod(-1)
+        union = twh.prod(-1)[:, None] + awh.prod(-1)[None, :] - inter
+        anchor_iou = inter / (union + 1e-9)
+        best_a = anchor_iou.argmax(dim=1)
+        m = mask & (anchor_iou.amax(dim=1) > self.iou_thres)
+        small = (t[:, 4] * t[:, 5]) < (64.0 * 64.0 / (W * H))
+        return best_a, m, small
+
     def __call__(self, predictions, targets, mask):
         dev = predictions[0].device
         targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
@@ -283,18 +334,22 @@ class AerialDetectionLoss:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         lbox, lobj, lcls = zero, zero, zero
 
+        levels = []  # the assignments first: the normalisers are sums over them
+        for i, pi in enumerate(predictions):
+            _, H, W, _, _ = pi.shape
+            gain = torch.tensor([1.0, 1.0, W, H, W, H], dtype=torch.float32, device=dev)
+            t = targets * gain
+            levels.append((t, *self._assign(t, mask, anchors[i], H, W)))
+        local = [x for _, _, m, small in levels for x in (m.sum(), (m & small).sum())]
+        sums = _global_sums(local + [torch.tensor(float(predictions[0].shape[0]), device=dev)])
+        rows = sums[-1] if sums is not None else None
+
         for i, pi in enumerate(predictions):
             pi = pi.float()
             B, H, W, na, _ = pi.shape
-            gain = torch.tensor([1.0, 1.0, W, H, W, H], dtype=torch.float32, device=dev)
-            t = targets * gain
-            twh, awh = t[:, 4:6], anchors[i]
-            inter = torch.minimum(twh[:, None, :], awh[None, :, :]).prod(-1)
-            union = twh.prod(-1)[:, None] + awh.prod(-1)[None, :] - inter
-            anchor_iou = inter / (union + 1e-9)
-            best_a = anchor_iou.argmax(dim=1)
-            m = mask & (anchor_iou.amax(dim=1) > self.iou_thres)
-
+            t, best_a, m, small = levels[i]
+            m_sum, small_sum = (sums[2 * i], sums[2 * i + 1]) if sums is not None else (None, None)
+            awh = anchors[i]
             gi = t[:, 2].to(torch.int32).long().clamp(0, W - 1)
             gj = t[:, 3].to(torch.int32).long().clamp(0, H - 1)
             b = t[:, 0].to(torch.int32).long()
@@ -303,21 +358,21 @@ class AerialDetectionLoss:
             pxy = torch.sigmoid(ps[:, 0:2]) * 2.0 - 0.5 + torch.stack([gi.float(), gj.float()], 1)
             pwh = (torch.sigmoid(ps[:, 2:4]) * 2.0) ** 2 * awh[best_a]
             iou = bbox_iou(torch.cat([pxy, pwh], 1), t[:, 2:6], format="xywh", iou_type="ciou")
-            lbox = lbox + masked_mean(1.0 - iou, m) * self.scales[0]
-            small = (t[:, 4] * t[:, 5]) < (64.0 * 64.0 / (W * H))
-            lbox = lbox + masked_mean(1.0 - iou, m & small) * self.scales[3]
+            lbox = lbox + masked_mean(1.0 - iou, m, mask_sum=m_sum) * self.scales[0]
+            lbox = lbox + masked_mean(1.0 - iou, m & small, mask_sum=small_sum) * self.scales[3]
 
             flat = ((_dropped(b, m, B) * H + gj) * W + gi) * na + best_a
             tobj = torch.zeros((B + 1) * H * W * na, dtype=torch.float32, device=dev)
             tobj = tobj.scatter_reduce(0, flat, torch.ones_like(iou), reduce="amax",
                                        include_self=True)
             tobj = tobj[: B * H * W * na].reshape(B, H, W, na)
-            lobj = lobj + modulated_bce(pi[..., 4], tobj).mean() * self.scales[1]
+            lobj = lobj + _mean_over_batch(modulated_bce(pi[..., 4], tobj), rows) * self.scales[1]
 
             if self.nc > 1:
                 cls_idx = targets[:, 1].to(torch.int32).long().clamp(0, self.nc - 1)
                 t_cls = F.one_hot(cls_idx, self.nc).float()
-                lcls = lcls + masked_mean(modulated_bce(ps[:, 5:], t_cls), m) * self.scales[2]
+                lcls = lcls + masked_mean(modulated_bce(ps[:, 5:], t_cls), m,
+                                          mask_sum=m_sum) * self.scales[2]
 
         total = lbox + lobj + lcls
         return total, torch.stack([lbox, lobj, lcls]).detach()

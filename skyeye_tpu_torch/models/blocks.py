@@ -22,6 +22,12 @@ same modules again, so ``BatchNorm2d`` reads a flag that the recompute sets
 and leaves its running statistics and ``num_batches_tracked`` alone then (it
 updated them once, in the forward). The wrapped regions hold no dropout, so
 no random draw is replayed.
+
+In a data-parallel step (``parallel.collectives.data_parallel``) a train-mode
+``BatchNorm2d`` takes its statistics over the global batch, as flax's does
+over a batch axis that GSPMD shards: ``SyncBatchNorm``, whose forward and
+backward reduce over the group. A recompute runs the same collectives on
+every rank, in the same order, and leaves the running statistics alone.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.collectives import current_group, sync_batch_norm
 
 _RECOMPUTE = threading.local()  # the autograd thread that runs a recompute sets it
 
@@ -96,11 +104,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode running variance is flax's: the biased
     batch variance (``nn.BatchNorm2d`` takes the unbiased one, n / (n - 1) of
     it). torch momentum 0.1 is flax momentum 0.9. The batch statistics that
-    normalise, and their gradient, are torch's own."""
+    normalise, and their gradient, are torch's own; in a data-parallel step,
+    those of the global batch (``SyncBatchNorm``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = current_group()
+        if group is not None:
+            return self._synced(x, group)
         if recomputing():  # the same op on copies: the statistics stay as the forward left them
             return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
                                 self.weight, self.bias, True, self.momentum, self.eps)
@@ -114,6 +126,16 @@ class BatchNorm2d(nn.BatchNorm2d):
             # not the running ones it was handed
             rv = self.running_var.data
             rv.copy_(keep * old + (rv - keep * old) * ((n - 1) / n))
+        return y
+
+    def _synced(self, x: torch.Tensor, group) -> torch.Tensor:
+        y, mean, var = sync_batch_norm(x, self.weight, self.bias, self.eps, group)
+        if not recomputing():  # flax's update, with the biased global variance
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+                self.num_batches_tracked.add_(1)
         return y
 
 

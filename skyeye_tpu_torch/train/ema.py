@@ -13,6 +13,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .optimizer import split_by_kind
+
 
 @dataclass
 class EMAState:
@@ -32,10 +34,11 @@ def ema_update(state: EMAState, model: nn.Module, decay: float = 0.9999,
     f32 = np.float32
     d = f32(decay) * (f32(1.0) - np.exp(-f32(state.updates) / f32(tau)))
     named = dict(model.named_parameters())
-    ema = list(state.params.values())
-    params = [named[k].detach() for k in state.params]
-    torch._foreach_mul_(ema, float(d))
-    torch._foreach_add_(ema, torch._foreach_mul(params, float(f32(1.0) - d)))
+    for part in split_by_kind(list(state.params), named):  # FSDP shards apart
+        ema = [state.params[k] for k in part]
+        params = [named[k].detach() for k in part]
+        torch._foreach_mul_(ema, float(d))
+        torch._foreach_add_(ema, torch._foreach_mul(params, float(f32(1.0) - d)))
     return state
 
 

@@ -20,6 +20,10 @@ tensors with the chain's order of operations:
   * accumulation is ``MultiSteps``: the micro-steps' gradients are averaged
     (acc += (g - acc) / (n + 1)), and the parameters change only at the
     k-th micro-step.
+
+Under FSDP (``parallel/fsdp.py``) the parameters, their gradients and this
+state are DTensors sharded alike, and the same foreach arithmetic runs on
+each rank's shard; ``state_dict`` gathers them whole.
 """
 from __future__ import annotations
 
@@ -49,6 +53,16 @@ def parameter_groups(model: nn.Module) -> Dict[str, Tuple[str, bool]]:
             decayed = leaf == "weight" and isinstance(mod, (nn.Conv2d, nn.Linear))
             out[name] = ("bias" if leaf == "bias" else "other", decayed)
     return out
+
+
+def split_by_kind(names: List[str], tensors: Dict[str, torch.Tensor]) -> List[List[str]]:
+    """``names`` in at most two lists, in order: those whose tensors are FSDP
+    shards (DTensors) and the rest; a foreach op takes tensors of one kind."""
+    from torch.distributed.tensor import DTensor
+
+    sharded = [k for k in names if isinstance(tensors[k], DTensor)]
+    whole = [k for k in names if not isinstance(tensors[k], DTensor)]
+    return [part for part in (sharded, whole) if part]
 
 
 class RuntimeOptimizer:
@@ -95,16 +109,17 @@ class RuntimeOptimizer:
                  for k in self.names}
         if self.acc_grads is not None:
             n = self.mini_step
-            acc = [self.acc_grads[k] for k in self.names]
-            diff = torch._foreach_sub([grads[k] for k in self.names], acc)
-            torch._foreach_div_(diff, float(n + 1))
-            torch._foreach_add_(acc, diff)
+            for part in split_by_kind(self.names, params):
+                acc = [self.acc_grads[k] for k in part]
+                diff = torch._foreach_sub([grads[k] for k in part], acc)
+                torch._foreach_div_(diff, float(n + 1))
+                torch._foreach_add_(acc, diff)
             emit = n == self.accumulate - 1
             self.mini_step = (n + 1) % self.accumulate
             if not emit:
                 return False
             grads = {k: self.acc_grads[k].clone() for k in self.names}
-            for t in acc:
+            for t in self.acc_grads.values():
                 t.zero_()
         self._apply(params, grads)
         self.gradient_step += 1
@@ -115,26 +130,30 @@ class RuntimeOptimizer:
         if self.adam:
             self.count += 1
         for group, lr in (("bias", hp["bias_lr"]), ("other", hp["lr"])):
-            names = [k for k in self.names if self.group[k] == group]
-            if not names:
-                continue
-            g = [grads[k] for k in names]
-            p = [params[k].detach() for k in names]
-            dec = [i for i, k in enumerate(names) if self.decayed[k]]
-            if dec and self.weight_decay:
-                decayed = torch._foreach_mul([p[i] for i in dec], self.weight_decay)
-                summed = torch._foreach_add([g[i] for i in dec], decayed)
-                for i, t in zip(dec, summed):
-                    g[i] = t
-            if self.adam:
-                u = self._adam(names, g)
-            else:
-                m = hp["momentum"]
-                t = [self.trace[k] for k in names]
-                torch._foreach_mul_(t, m)
-                torch._foreach_add_(t, g)                 # t = g + m t
-                u = torch._foreach_add(g, torch._foreach_mul(t, m))  # u = g + m t
-            torch._foreach_add_(p, torch._foreach_mul(u, -lr))
+            for names in split_by_kind([k for k in self.names if self.group[k] == group],
+                                       params):
+                self._apply_part(names, params, grads, lr)
+
+    def _apply_part(self, names, params, grads, lr) -> None:
+        """The update of the parameters ``names`` (one group, one kind) at ``lr``."""
+        hp = self.hyperparams
+        g = [grads[k] for k in names]
+        p = [params[k].detach() for k in names]
+        dec = [i for i, k in enumerate(names) if self.decayed[k]]
+        if dec and self.weight_decay:
+            decayed = torch._foreach_mul([p[i] for i in dec], self.weight_decay)
+            summed = torch._foreach_add([g[i] for i in dec], decayed)
+            for i, t in zip(dec, summed):
+                g[i] = t
+        if self.adam:
+            u = self._adam(names, g)
+        else:
+            m = hp["momentum"]
+            t = [self.trace[k] for k in names]
+            torch._foreach_mul_(t, m)
+            torch._foreach_add_(t, g)                 # t = g + m t
+            u = torch._foreach_add(g, torch._foreach_mul(t, m))  # u = g + m t
+        torch._foreach_add_(p, torch._foreach_mul(u, -lr))
 
     def _adam(self, names, g):
         b1, b2 = self.b1, ADAM_B2
@@ -165,7 +184,9 @@ class RuntimeOptimizer:
             out.update(trace=self.trace)
         if self.acc_grads is not None:
             out["acc_grads"] = self.acc_grads
-        return {k: ({n: t.detach().cpu() for n, t in v.items()} if isinstance(v, dict)
+        from ..parallel.fsdp import whole
+
+        return {k: ({n: whole(t).detach().cpu() for n, t in v.items()} if isinstance(v, dict)
                     and k != "hyperparams" else v) for k, v in out.items()}
 
     def load_state_dict(self, state: Dict) -> None:

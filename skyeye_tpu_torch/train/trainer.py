@@ -9,6 +9,16 @@ train mode (BatchNorm's statistics of this micro-step kept, flax's way), the
 loss with the loader's wrap-around rows weighted 0, the backward, the
 optimizer (which changes the parameters at the k-th micro-step only) and the
 EMA, on every micro-step.
+
+Over a mesh (``parallel.create_mesh`` in a process group), the step is JAX's
+step over a batch sharded on the data axis: each rank is handed its rows of
+the global batch; the device augmentation gathers the global batch's uint8
+frames and renders this rank's rows from the global batch's draws;
+forward and backward run in ``parallel.data_parallel``, so BatchNorm takes
+global-batch statistics and the loss divides by global-batch sums; the
+ranks' gradients and metrics are then summed in one collective (a
+parameter FSDP shards arrives summed already). Every rank then applies the
+same update to the same state, so the state stays identical on every rank.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.collectives import all_reduce_flat, data_parallel, gather_rows
 from .ema import EMAState, ema_init, ema_update
 from .optimizer import RuntimeOptimizer
 
@@ -51,7 +62,8 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
                     ema_decay: float = 0.9999, device_augment: Optional[Callable] = None,
                     dropout_seed: int = 0,
-                    on_stage: Optional[Callable[[str], None]] = None) -> Callable:
+                    on_stage: Optional[Callable[[str], None]] = None,
+                    mesh=None) -> Callable:
     """The train step, JAX's ``make_train_step``.
 
     loss_fn(predictions, targets, mask[, img_weight]) -> (loss, aux[3]).
@@ -62,6 +74,11 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
     Dropout draws from a generator made from ``dropout_seed`` and the step.
     ``on_stage(name)``, when given, is called after "augment", "forward",
     "loss", "backward" and "optimizer" (the optimizer and the EMA).
+
+    ``mesh`` (a ``parallel.Mesh`` over a process group): the batch holds this
+    rank's rows of the global batch (rank r the r-th share), n_valid counts the
+    global batch's valid rows, ``device_augment`` takes a ``rows`` keyword,
+    and the metrics are the global batch's.
 
     step(state, batch) -> (state, metrics) with metrics loss, box, obj, cls as
     0-d tensors on the device; the state is updated in place.
@@ -77,17 +94,29 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
     if device_augment is not None or norm_dtype != torch.bfloat16:
         norm_dtype = torch.float32
     mark = on_stage or (lambda name: None)
+    group = mesh.group if mesh is not None else None
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model = state.model
         images = batch["images"]
+        targets, mask = batch["targets"], batch["mask"]
+        B = targets.shape[0]
+        first = mesh.rank * B if group is not None else 0  # this rank's first global row
+        if device_augment is not None and group is not None:
+            # mosaic and mixup read other ranks' rows: the global batch, uint8
+            images, targets, mask = (gather_rows(t, group) for t in (images, targets, mask))
         if images.dtype == torch.uint8:
             images = images.to(norm_dtype) / 255.0
-        targets, mask = batch["targets"], batch["mask"]
         if device_augment is not None:
-            images, targets, mask = device_augment(images, targets, mask, batch["aug_generator"])
+            if group is not None:
+                rows = torch.arange(first, first + B, device=images.device)
+                images, targets, mask = device_augment(images, targets, mask,
+                                                       batch["aug_generator"], rows=rows)
+            else:
+                images, targets, mask = device_augment(images, targets, mask,
+                                                       batch["aug_generator"])
         mark("augment")
-        B, M = targets.shape[0], targets.shape[1]
+        M = targets.shape[1]
         flat_targets = targets.reshape(B * M, 6).clone()
         flat_targets[:, 0] = torch.arange(B, dtype=flat_targets.dtype,
                                           device=flat_targets.device).repeat_interleave(M)
@@ -95,21 +124,25 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
         n_valid = batch.get("n_valid")
         img_weight = None
         if n_valid is not None and takes_img_weight:
-            img_weight = (torch.arange(B, device=images.device)
+            img_weight = (torch.arange(first, first + B, device=images.device)
                           < torch.as_tensor(n_valid, device=images.device)).float()
 
         model.train()
         set_dropout_generator(model, step_generator(dropout_seed, state.step, images.device))
         for p in model.parameters():
             p.grad = None
-        outs = model(images.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
-        mark("forward")
-        if img_weight is not None:
-            loss, aux = loss_fn(outs, flat_targets, flat_mask, img_weight=img_weight)
-        else:
-            loss, aux = loss_fn(outs, flat_targets, flat_mask)
-        mark("loss")
-        loss.backward()
+        with data_parallel(group):
+            outs = model(images.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
+            mark("forward")
+            if img_weight is not None:
+                loss, aux = loss_fn(outs, flat_targets, flat_mask, img_weight=img_weight)
+            else:
+                loss, aux = loss_fn(outs, flat_targets, flat_mask)
+            mark("loss")
+            loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            loss, aux = _sum_gradients_and_metrics(model, loss, aux, group)
         mark("backward")
         set_dropout_generator(model, None)
 
@@ -119,10 +152,26 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
         ema_update(state.ema, model, decay=ema_decay)
         state.step += 1
         mark("optimizer")
-        metrics = {"loss": loss.detach(), "box": aux[0], "obj": aux[1], "cls": aux[2]}
+        metrics = {"loss": loss, "box": aux[0], "obj": aux[1], "cls": aux[2]}
         return state, metrics
 
     return step_fn
+
+
+def _sum_gradients_and_metrics(model: nn.Module, loss, aux, group):
+    """Sum over ``group``, in one flat collective, every gradient that FSDP does
+    not sum (every one, without FSDP) and the metrics; the sums are JAX's global
+    gradient and loss (the partial losses sum to the global batch's).
+    Returns the summed (loss, aux)."""
+    from torch.distributed.tensor import DTensor
+
+    whole = [p for p in model.parameters() if not isinstance(p, DTensor)]
+    for p in whole:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    metrics = torch.cat([loss.float().reshape(1), aux.float()])
+    all_reduce_flat([p.grad for p in whole] + [metrics], group)
+    return metrics[0].to(loss.dtype), metrics[1:].to(aux.dtype)
 
 
 def fitness(metrics: Dict[str, float]) -> float:

@@ -441,22 +441,30 @@ def save_train_checkpoint(path, state, epoch: int, best_fitness: float, config) 
     serves a training checkpoint's ``ema_params``: the EMA parameters with the
     model's BatchNorm statistics. Beside them: ``train_state_dict`` (the model's
     own parameters and statistics, which training resumes from),
-    ``ema_updates``, ``optimizer``, ``step``, ``epoch``, ``best_fitness``."""
+    ``ema_updates``, ``optimizer``, ``step``, ``epoch``, ``best_fitness``.
+
+    In a data-parallel run every rank calls it: an FSDP state's shards are
+    gathered whole (a collective), and the main process alone writes the
+    file, the same file a single-card run writes."""
+    from ..parallel.fsdp import full_tensors
+    from ..parallel.mesh import is_main_process
     from ..train.ema import ema_weights
 
     path = Path(path)
     tmp = path.with_name(path.name + ".tmp")
 
     def cpu(sd):
-        return {k: v.detach().cpu() for k, v in sd.items()}
+        return {k: v.detach().cpu() for k, v in full_tensors(sd).items()}
 
-    torch.save({"layout": PORT_LAYOUT, "config": config.to_dict(),
-                "state_dict": cpu(ema_weights(state.ema, state.model)),
-                "train_state_dict": cpu(state.model.state_dict()),
-                "ema_updates": int(state.ema.updates), "optimizer": state.opt.state_dict(),
-                "step": int(state.step), "epoch": int(epoch),
-                "best_fitness": float(best_fitness)}, tmp)
-    tmp.replace(path)
+    payload = {"layout": PORT_LAYOUT, "config": config.to_dict(),
+               "state_dict": cpu(ema_weights(state.ema, state.model)),
+               "train_state_dict": cpu(state.model.state_dict()),
+               "ema_updates": int(state.ema.updates), "optimizer": state.opt.state_dict(),
+               "step": int(state.step), "epoch": int(epoch),
+               "best_fitness": float(best_fitness)}
+    if is_main_process():
+        torch.save(payload, tmp)
+        tmp.replace(path)
     return path
 
 

@@ -19,6 +19,20 @@ from ..config import DataConfig
 LOGGER = logging.getLogger("skyeye_tpu_torch")
 
 
+def _main_process() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def set_logging(verbose: bool = True) -> logging.Logger:
+    """The port's logger at INFO on the main process and at WARNING on the
+    others (JAX's ``set_logging``); ``parallel.initialize_distributed`` calls it
+    once the process knows its rank."""
+    LOGGER.setLevel(logging.INFO if verbose and _main_process() else logging.WARNING)
+    return LOGGER
+
+
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     """The device the caller asked for; asking for CUDA where there is none raises."""
     dev = torch.device(device)
@@ -112,4 +126,6 @@ def labels_to_class_weights(labels: Sequence[np.ndarray], nc: int = 80) -> np.nd
 
 
 def print_args(args: Optional[Dict] = None, show_file: bool = True) -> None:
-    LOGGER.info(", ".join(f"{k}={v}" for k, v in (args or {}).items()))
+    """Log the arguments, on the main process only."""
+    if _main_process():
+        LOGGER.info(", ".join(f"{k}={v}" for k, v in (args or {}).items()))

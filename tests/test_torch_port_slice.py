@@ -173,7 +173,8 @@ def test_cuda_is_the_default_and_is_not_replaced_by_the_cpu():
 
 
 def test_main_path_imports_no_jax():
-    """The port, its API, its CLIs and chip_smoke.py import none of jax, flax,
+    """The port, its API, its CLIs, its multi-device package and chip_smoke.py
+    import none of jax, flax,
     skyeye_tpu, yaml, cv2, PIL, matplotlib or pandas (``Results.pandas`` imports
     pandas when it is called)."""
     code = (
@@ -197,6 +198,9 @@ def test_main_path_imports_no_jax():
         "import skyeye_tpu_torch.ops.int8_stage, skyeye_tpu_torch.ops.int8_neck\n"
         "import skyeye_tpu_torch.ops.int8_stem, skyeye_tpu_torch.cli.export\n"
         "import skyeye_tpu_torch.utils.profiling\n"
+        "import skyeye_tpu_torch.parallel, skyeye_tpu_torch.parallel.mesh\n"
+        "import skyeye_tpu_torch.parallel.fsdp, skyeye_tpu_torch.parallel.launch\n"
+        "import skyeye_tpu_torch.parallel.collectives\n"
         "import chip_smoke\n"
         "banned = ('jax', 'flax', 'skyeye_tpu', 'yaml', 'cv2', 'PIL', 'matplotlib', 'pandas')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"

@@ -16,8 +16,8 @@ which is why the comparison stops at two optimizer steps); P, R and the mAPs
 within 1e-3. Also: ``last.pt``/``best.pt`` hold the EMA weights, read back by
 ``SkyEyeDetector`` and by ``validate`` to their epoch's row of ``results.csv``; a
 run stopped after one epoch and resumed gives the uninterrupted run's rows;
-the multi-device options, which are not ported, raise, naming their ROADMAP
-item. Host augmentation (JAX's default), ``remat`` and ``evolve`` are held
+spatial sharding, which is not ported, raises, naming its ROADMAP item (8b;
+multi-device training is held in ``test_torch_port_parallel.py``). Host augmentation (JAX's default), ``remat`` and ``evolve`` are held
 against JAX in ``test_torch_port_{augment,remat,evolve}.py``.
 """
 import csv
@@ -209,7 +209,7 @@ def test_a_resumed_run_gives_the_uninterrupted_rows(setup, tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("fsdp", True, "item 8"), ("spatial_shards", 2, "item 8"),
+    ("spatial_shards", 4, "item 8b"), ("spatial_shards", 2, "item 8"),
 ])
 def test_options_that_are_not_ported_raise(option, value, item, tmp_path):
     kw = dict(data={"train": str(tmp_path), "nc": 1}, device_aug=True, project=str(tmp_path),
