@@ -199,6 +199,18 @@ Phases, one JSON line each; a failed phase raises and the script exits non-zero:
            its plain step; (c) ``cli.train`` at world 2 over gloo, one epoch:
            rank 0 validates (K1 counted in its process) and writes,
            ``last.pt`` validated to its row
+  train_spatial
+           spatial sharding through ``parallel.launch``: a (data 1, spatial 2)
+           mesh, two processes on the one card over gloo; skyeye_s at 1280
+           px, batch 8, device augmentation, 3 micro-steps (accumulate 2),
+           each rank on its 640 rows of every frame, against the
+           one-process step on the whole frames (``_gates``), the ranks'
+           states equal bit for bit; each rank's peak memory beside the
+           one-process peak, ms, collectives and exchanges a micro-step;
+           skyeye_l_transformer's micro-step at 640 px on the spatial mesh
+           (K4 once a rank, on the gathered P5 tokens) against its
+           one-process step; ``cli.train`` with ``spatial_shards=2`` in the
+           same two processes, one epoch (rank 0 validates: K1)
   serve_mesh
            ``SkyEyeDetector("skyeye_s", mesh=...)``, two replicas on the one
            card: 3 requests of 16 frames at 1280 px and a batch of 3 (the pad
@@ -210,8 +222,9 @@ The serving phases reach K1 through the facade's default cut: late decode
 4096 at 0.001. Then a ``{"kernels": [...]}`` line (a kernel's ``launches`` summed
 over the paths in ``launches_by_path``: K1's include the int8 phases,
 ``export``, ``detect``, ``train``, ``train_host_aug``, ``evolve``,
-``train_multi`` and ``serve_mesh``, K3's ``serve_mesh``, K4's
-``train_transformer``, ``train_remat`` and ``train_multi``),
+``train_multi``, ``train_spatial`` and ``serve_mesh``, K3's ``serve_mesh``,
+K4's ``train_transformer``, ``train_remat``, ``train_multi`` and
+``train_spatial``),
 the ``nvidia-smi`` name and
 power-limit line, and, last, ``{"ok": true, "device": {...}}``. A watchdog ends
 a hung run with a traceback and a non-zero exit. Imports torch, numpy and the
@@ -2891,20 +2904,22 @@ def _multi_data(workdir):
             "nc": len(DRONE_NAMES), "names": DRONE_NAMES}
 
 
-def _multi_batch(torch, data, rank, world, dev):
+def _multi_batch(torch, data, rank, world, dev, img=TRAIN_IMG, batch_size=TRAIN_BATCH):
     """This rank's share of the loader's first global batch (letterboxed, as with
     device augmentation), on its card."""
     from skyeye_tpu_torch.data.dataset import create_dataloader
 
-    loader, _ = create_dataloader(data["path"] + "/" + data["train"], img_size=TRAIN_IMG,
-                                  batch_size=TRAIN_BATCH, stride=32, augment=False, workers=4,
+    loader, _ = create_dataloader(data["path"] + "/" + data["train"], img_size=img,
+                                  batch_size=batch_size, stride=32, augment=False, workers=4,
                                   seed=0, shuffle=True, rank=rank, world=world)
     b = next(iter(loader))
     return {k: torch.from_numpy(np.asarray(b[k])).to(dev) for k in ("images", "targets", "mask")}
 
 
 class _CollectiveCount:
-    """Calls of the process-group collectives while it is entered."""
+    """Calls of the process-group collectives while it is entered, and the
+    forward calls of the spatial exchanges (each runs one collective forward and
+    one in the backward)."""
 
     NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter_tensor",
              "broadcast")
@@ -2912,15 +2927,24 @@ class _CollectiveCount:
     def __init__(self, dist):
         self.dist, self.calls, self.patches = dist, {}, []
 
-    def __enter__(self):
-        for name in self.NAMES:
-            real = getattr(self.dist, name)
+    def _count(self, target, attr, label):
+        real = getattr(target, attr)
 
-            def counted(*a, _real=real, _name=name, **k):
-                self.calls[_name] = self.calls.get(_name, 0) + 1
-                return _real(*a, **k)
-            self.patches.append(mock.patch.object(self.dist, name, counted))
-            self.patches[-1].start()
+        def counted(*a, _real=real, **k):
+            self.calls[label] = self.calls.get(label, 0) + 1
+            return _real(*a, **k)
+        self.patches.append(mock.patch.object(target, attr, counted))
+        self.patches[-1].start()
+
+    def __enter__(self):
+        from skyeye_tpu_torch.parallel import spatial
+
+        for name in self.NAMES:
+            self._count(self.dist, name, name)
+        for label, fn in (("halo_exchange", spatial._Halo), ("gather_spatial", spatial._Gather),
+                          ("split_spatial", spatial._Split), ("spatial_sum", spatial._Sum),
+                          ("spatial_max", spatial._Max)):
+            self._count(fn, "apply", label)
         return self
 
     def __exit__(self, *exc):
@@ -2929,7 +2953,7 @@ class _CollectiveCount:
 
 
 def _multi_steps(torch, spec, mesh, batch, fsdp=False, timed_extra=0, float64=False,
-                 profile=False):
+                 profile=False, batch_size=TRAIN_BATCH):
     """The micro-steps from the smoke's skyeye_s weights on ``batch`` (this rank's
     share): losses, each micro-step's ms (CUDA events), the collectives of one
     micro-step (and, with ``profile``, NCCL's device ms in it), and the state
@@ -2958,7 +2982,7 @@ def _multi_steps(torch, spec, mesh, batch, fsdp=False, timed_extra=0, float64=Fa
         m64 = SkyEyeDetectorModule(model.config, dtype=torch.float64)
         m64.load_state_dict(model.state_dict(), strict=True)
         model = m64.double().to(dev)
-    opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=TRAIN_BATCH,
+    opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=batch_size,
                            accumulate=MULTI_ACCUMULATE)
     state = create_train_state(model, opt)
     step = make_train_step(model, ComputeLoss(model.config.anchors, model.config.nc), opt,
@@ -2970,7 +2994,7 @@ def _multi_steps(torch, spec, mesh, batch, fsdp=False, timed_extra=0, float64=Fa
     hp = {"lr": 0.01, "bias_lr": 0.01, "momentum": 0.937}
     losses, ms, collectives, tensors = [], [], {}, {}
     for i in range(MULTI_MICRO_STEPS + timed_extra):
-        b = dict(batch, aug_generator=step_generator(0, i, dev), n_valid=TRAIN_BATCH,
+        b = dict(batch, aug_generator=step_generator(0, i, dev), n_valid=batch_size,
                  opt_hyperparams=hp)
         if i == 1 and mesh is not None:
             with _CollectiveCount(dist) as count:
@@ -3148,13 +3172,16 @@ def _gates(got, ref, f64, start):
         s0 = start[k.split(":", 1)[-1]]
         rel = MULTI_STATS_AFTER_UPDATE_REL if _is_stat(k) else MULTI_PARAMS_AFTER_UPDATE_REL
         last[k] = float((states["last"][k] - w).abs().max()) / max(_allowance(w, s0, rel), 1e-30)
-        w64 = f64["last"][k]
-        to64[k] = float((states["last"][k] - w64).abs().max()) / max(
-            _allowance(w64, s0, MULTI_CHANGE_REL), 1e-30)
+        if f64 is not None:
+            w64 = f64["last"][k]
+            to64[k] = float((states["last"][k] - w64).abs().max()) / max(
+                _allowance(w64, s0, MULTI_CHANGE_REL), 1e-30)
     rel = [abs(x - y) / abs(y) for x, y in zip(losses, ref_losses)]
-    return {"loss_rel_before_update": max(rel[:2]), "loss_rel_after_update": rel[2],
-            "state_before_update": _worst(first), "state_after_update": _worst(last),
-            "from_float64_after_update": _worst(to64)}
+    out = {"loss_rel_before_update": max(rel[:2]), "loss_rel_after_update": rel[2],
+           "state_before_update": _worst(first), "state_after_update": _worst(last)}
+    if f64 is not None:
+        out["from_float64_after_update"] = _worst(to64)
+    return out
 
 
 def _gates_fail(checks) -> bool:
@@ -3281,6 +3308,198 @@ def phase_train_multi(torch, gpu_line, workdir):
     return [dict(name="batched_greedy_nms", path="train_multi", launches=k1_launches),
             dict(name="flash_attention", path="train_multi",
                  launches=tr["dp"]["k4_launches"])]
+
+
+# -- spatial sharding: each frame's rows split over two ranks on the one card --------
+
+SPATIAL_WORLD = 2  # (data 1, spatial 2): two processes on the one card over gloo
+SPATIAL_IMG, SPATIAL_BATCH = 1280, 8  # full width; the one-process step and both ranks fit
+SPATIAL_TRANSFORMER_IMG, SPATIAL_TRANSFORMER_BATCH = 640, 4  # P5: 20 x 20 tokens, K4's gate
+
+
+def _rows_of(batch, rank, n):
+    """This spatial rank's image rows of a batch (the targets whole)."""
+    h = batch["images"].shape[1] // n
+    return dict(batch, images=batch["images"][:, rank * h:(rank + 1) * h].contiguous())
+
+
+def _peak_steps(torch, **kw):
+    """``_multi_steps`` with the card's peak allocation over it (bytes)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, tensors = _multi_steps(torch, **kw)
+    torch.cuda.synchronize()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return res, tensors
+
+
+def _spatial_transformer(torch, mesh, batch):
+    """skyeye_l_transformer's micro-step under the spatial mesh (K4 on the whole
+    P5's gathered tokens in each rank) against its one-process step (rank 0),
+    from the seed-0 weights, on the batch's first frames at 640 px."""
+    from skyeye_tpu_torch.config import DEFAULT_HYP
+    from skyeye_tpu_torch.losses import ComputeLoss
+    from skyeye_tpu_torch.models.detector import create_detector
+    from skyeye_tpu_torch.ops import attention_kernel
+    from skyeye_tpu_torch.train import RuntimeOptimizer, create_train_state, make_train_step
+
+    whole = {k: v[:SPATIAL_TRANSFORMER_BATCH] for k, v in batch.items()}
+    whole["opt_hyperparams"] = {"lr": 0.0, "bias_lr": 0.0, "momentum": 0.937}
+    model = create_detector("skyeye_l_transformer", num_classes=len(DRONE_NAMES),
+                            device=batch["images"].device, seed=0)
+    seeded = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = [("plain", None, whole)] if mesh.spatial_rank == 0 else []
+    runs.append(("spatial", mesh, _rows_of(whole, mesh.spatial_rank, mesh.n_spatial)))
+    out = {}
+    for name, m, b in runs:
+        model.load_state_dict(seeded, strict=True)  # the BatchNorm statistics too
+        opt = RuntimeOptimizer(model, DEFAULT_HYP, batch_size=64)
+        step = make_train_step(model, ComputeLoss(model.config.anchors, model.config.nc), opt,
+                               mesh=m)
+        attention_kernel.reset_launch_counts()
+        _, metrics = step(create_train_state(model, opt), dict(b))
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(metrics["loss"]),
+                     "k4_launches": attention_kernel.LAUNCHES["flash_attention"]}
+        del opt, step
+    del model, seeded
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_worker(spec):
+    """One rank of ``train_spatial``: rank 0 runs the one-process micro-steps on
+    the whole frames, then both ranks the spatial micro-steps on their rows
+    (peak memory, ms and exchanges each), then the transformer's micro-step;
+    rank 0 saves each state under ``spec["out"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from skyeye_tpu_torch.parallel import create_mesh
+
+    _no_tf32(torch)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = create_mesh(1, SPATIAL_WORLD, devices=[dev])
+    data = _multi_data(spec["workdir"])
+    whole = _multi_batch(torch, data, 0, 1, dev, img=SPATIAL_IMG, batch_size=SPATIAL_BATCH)
+    rank = mesh.spatial_rank
+    out = {"backend": dist.get_backend(), "shape": dict(mesh.shape), "spatial_rank": rank}
+    runs = [("plain", dict(mesh=None, batch=whole))] if rank == 0 else []
+    runs.append(("spatial", dict(mesh=mesh, batch=_rows_of(whole, rank, SPATIAL_WORLD))))
+    for name, kw in runs:
+        res, tensors = _peak_steps(torch, spec=spec, batch_size=SPATIAL_BATCH, **kw)
+        if name == "spatial":
+            res["ranks_bitwise_equal"] = _ranks_equal(torch, tensors, dev, mesh.world_group)
+        if rank == 0:
+            torch.save(tensors, f"{spec['out']}/{name}.pt")
+        out[name] = res
+        del tensors
+    del whole
+    torch.cuda.empty_cache()
+    small = _multi_batch(torch, data, 0, 1, dev, img=SPATIAL_TRANSFORMER_IMG,
+                         batch_size=SPATIAL_TRANSFORMER_BATCH)
+    out["transformer"] = _spatial_transformer(torch, mesh, small)
+    del small
+    torch.cuda.empty_cache()
+    # cli.train --spatial-shards 2 in this group (rank 0 validates: K1)
+    from skyeye_tpu_torch.cli.train import train
+    from skyeye_tpu_torch.ops import nms_kernel
+
+    nms_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, save_dir = train(**spec["cli"])
+    out["cli"] = {"save_dir": str(save_dir), "launches": dict(nms_kernel.LAUNCHES),
+                  "s": time.perf_counter() - t0}
+    return out
+
+
+def phase_train_spatial(torch, gpu_line, workdir):
+    """Spatial sharding through the launcher: a (data 1, spatial 2) mesh of two
+    processes on the one card over gloo. skyeye_s at 1280 px, batch 8, device
+    augmentation, 3 micro-steps (the second updates), from the smoke's weights,
+    each rank on its 640 rows of every frame, against the one-process step on
+    the whole frames (rank 0, before): PR 14's gates (``_gates``); each rank's
+    peak memory beside the one-process peak; ms and exchanges a micro-step (no
+    speed is claimed: gloo goes through the host). Then skyeye_l_transformer's
+    micro-step at 640 px under the same mesh, K4 once a rank on the gathered P5
+    tokens, its loss against its one-process step. Last, ``cli.train`` with
+    ``spatial_shards=2`` in the same two processes (one epoch at 640 px, batch
+    16; rank 0 validates, K1)."""
+    from pathlib import Path
+
+    from skyeye_tpu_torch.parallel import launch
+    from skyeye_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    t_phase = time.perf_counter()
+    root = Path(workdir)
+    out_dir = root / "train_spatial"
+    out_dir.mkdir(exist_ok=True)
+    spec = {"workdir": str(root), "weights": str(root / "skyeye_s.pt"), "out": str(out_dir),
+            "cli": dict(cfg="skyeye_s", data=_multi_data(str(root)), epochs=1,
+                        batch_size=TRAIN_BATCH, img_size=TRAIN_IMG,
+                        weights=str(root / "skyeye_s.pt"), device_aug=True, spatial_shards=SPATIAL_WORLD,
+                        project=str(root / "runs_spatial"), name="exp", seed=0, device="cuda")}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(spatial_worker, SPATIAL_WORLD, kwargs={"spec": spec}, backend="gloo",
+                   timeout_s=MULTI_TIMEOUT_S)
+    command_s = time.perf_counter() - t0
+    start = {k: v.double() for k, v in load_torch_checkpoint(spec["weights"])[0].items()}
+    plain, spatial = (torch.load(out_dir / f"{n}.pt") for n in ("plain", "spatial"))
+    # no float64 run here: the parameters' after-update allowance is train_multi's
+    checks = _gates((ranks[0]["spatial"]["losses"], spatial), (ranks[0]["plain"]["losses"], plain),
+                    None, start)
+    del plain, spatial
+    if _gates_fail(checks):
+        fail(f"train_spatial: losses {ranks[0]['spatial']['losses']} against "
+             f"{ranks[0]['plain']['losses']}; {checks}")
+    if not all(r["spatial"]["ranks_bitwise_equal"] for r in ranks):
+        fail("train_spatial: the ranks' states differ")
+    if any(r["backend"] != "gloo" or r["shape"] != {"data": 1, "spatial": SPATIAL_WORLD}
+           for r in ranks):
+        fail(f"train_spatial: the mesh {[(r['backend'], r['shape']) for r in ranks]}")
+    peaks = {"one_process": ranks[0]["plain"]["peak_bytes"],
+             "ranks": [r["spatial"]["peak_bytes"] for r in ranks]}
+    tr = {"plain": ranks[0]["transformer"]["plain"],
+          "spatial": [r["transformer"]["spatial"] for r in ranks]}
+    k4 = sum(t["k4_launches"] for t in tr["spatial"])
+    if any(t["k4_launches"] != 1 or abs(t["loss"] - tr["plain"]["loss"]) >
+           MULTI_LOSS_REL * abs(tr["plain"]["loss"]) for t in tr["spatial"]):
+        fail(f"train_spatial: skyeye_l_transformer's spatial step {tr}")
+    c = [r["cli"] for r in ranks]
+    save_dir = Path(c[0]["save_dir"])
+    k1_launches = c[0]["launches"]["batched_greedy_nms"]
+    if c[1]["save_dir"] != c[0]["save_dir"] or c[1]["launches"]["batched_greedy_nms"] != 0 \
+            or k1_launches == 0:
+        fail(f"train_spatial: cli.train ran in {[r['save_dir'] for r in c]} with launches "
+             f"{[r['launches'] for r in c]}")
+    with open(save_dir / "results.csv") as f:
+        rows = [r.strip().split(",") for r in f.readlines()[1:]]
+    if len(rows) != 1 or not np.isfinite([float(v) for v in rows[0]]).all():
+        fail(f"train_spatial: cli.train's results.csv rows {rows}")
+    gib = 1024 ** 3
+    emit("train_spatial", model="skyeye_s", nc=len(DRONE_NAMES), img_size=SPATIAL_IMG,
+         batch=SPATIAL_BATCH, accumulate=MULTI_ACCUMULATE, micro_steps=MULTI_MICRO_STEPS,
+         dtype="float32", tf32=False, device_aug=True, mesh={"data": 1, "spatial": SPATIAL_WORLD},
+         backend=ranks[0]["backend"],
+         losses={"one_process": ranks[0]["plain"]["losses"],
+                 "ranks": [r["spatial"]["losses"] for r in ranks]},
+         peak_gib={"one_process": peaks["one_process"] / gib,
+                   "ranks": [b / gib for b in peaks["ranks"]]},
+         peak_rank_over_one_process=[b / peaks["one_process"] for b in peaks["ranks"]],
+         micro_step_ms={"one_process": ranks[0]["plain"]["ms"],
+                        "ranks": [r["spatial"]["ms"] for r in ranks]},
+         calls_per_micro_step=[r["spatial"]["collectives"] for r in ranks],
+         checks=checks, transformer=dict(tr, img_size=SPATIAL_TRANSFORMER_IMG,
+                                         batch=SPATIAL_TRANSFORMER_BATCH),
+         cli_spatial_shards_2={"img_size": TRAIN_IMG, "batch": TRAIN_BATCH, "epochs": 1,
+                               "results_csv": rows, "k1_launches_rank0": k1_launches,
+                               "cli_train_s": c[0]["s"]},
+         note="two processes share one card over gloo: no speed is measured",
+         command_s=command_s, card=gpu_line, phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return [dict(name="flash_attention", path="train_spatial", launches=k4),
+            dict(name="batched_greedy_nms", path="train_spatial", launches=k1_launches)]
 
 
 def phase_serve_mesh(torch, gpu_line):
@@ -3453,6 +3672,7 @@ def main() -> int:
         summary += phase_train_remat(torch, gpu_line, workdir)
         summary += phase_evolve(torch, gpu_line, workdir)
         summary += phase_train_multi(torch, gpu_line, workdir)
+        summary += phase_train_spatial(torch, gpu_line, workdir)
     summary += phase_serve_mesh(torch, gpu_line)
     summary = merge_by_kernel(summary)
     for s in summary:

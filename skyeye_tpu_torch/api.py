@@ -212,6 +212,9 @@ class SkyEyeDetector:
         if mesh is not None and mesh.group is not None:
             raise ValueError("serving takes a mesh of this process's devices "
                              "(parallel.create_mesh outside a process group)")
+        if mesh is not None and mesh.n_spatial > 1:
+            raise ValueError("serving splits batches over the data axis: a mesh with a "
+                             "spatial axis is for training")
         self.mesh = mesh
         self._replica_of = None  # the model the replicas were copied from
         self._replicas: List[torch.nn.Module] = []

@@ -33,10 +33,19 @@ BatchNorm, the global batch's loss normalisers, summed gradients), and
 ``fsdp`` shards the training state (``parallel/fsdp.py``). Rank 0 makes the
 run directory, validates on the EMA weights and writes ``results.csv`` and
 the checkpoints; the others wait for its fitness, so every rank stops at the
-same epoch. ``spatial_shards > 1`` raises NotImplementedError (ROADMAP
-item 8b). ``packed_stem`` is a TPU
+same epoch. ``spatial_shards`` N splits each frame's rows over N ranks
+(``parallel/spatial.py``): the world is data axis x N (the data axis is then
+the largest divisor of the batch that fits the visible cards / N), the N
+ranks of a data share load the same batch and each takes its rows of it
+(``shard_batch(..., spatial=True)``'s split; JAX's CLI places the batch
+without ``spatial=True`` and lets GSPMD split where it propagates, which
+gives the same step). Where the world exceeds the visible cards (two ranks
+on one card), the ranks talk over gloo. ``fsdp`` with a data axis above 1
+and ``spatial_shards > 1`` raises NotImplementedError (ROADMAP item 8c).
+``packed_stem`` is a TPU
 lane remap of the stem that JAX calls numerically equivalent: the port trains
-the canonical stem for either value (ROADMAP Queue 1 item 9). The figures of
+the canonical stem for either value (ROADMAP Queue 1 item 9); JAX turns it
+off under spatial sharding. The figures of
 ``plot_results`` are not drawn (a warning; the plotting slice, Queue 1 item 15).
 
 Usage: python -m skyeye_tpu_torch.cli.train --cfg skyeye_s --data drone.yaml \\
@@ -148,18 +157,23 @@ def train(
                           save_dir=evolve_dir, seed=seed)
         (evolve_dir / "hyp_evolved.yaml").write_text(dump_flat_yaml(best))
         return None, evolve_dir
-    if spatial_shards > 1:
-        from ..parallel.mesh import spatial_not_ported
+    from ..parallel.fsdp import fsdp_with_spatial_not_ported
+    from ..parallel.mesh import check_spatial_rows
 
-        raise spatial_not_ported()
+    check_spatial_rows(img_size, spatial_shards)
     if not dist.is_initialized():
         from ..parallel.launch import launch, under_torchrun
 
-        n_data = _data_axis(batch_size, device)
-        if n_data > 1 or under_torchrun():
+        n_data = _data_axis(batch_size, device, spatial_shards)
+        n_world = n_data * spatial_shards
+        if fsdp and n_data > 1 and spatial_shards > 1:
+            raise fsdp_with_spatial_not_ported()
+        if n_world > 1 or under_torchrun():
             args = {k: v for k, v in locals().items() if k in _TRAIN_ARGS}
             on_cpu = torch.device(device).type == "cpu"
-            return launch(train, n_data, kwargs=args, backend="gloo" if on_cpu else None,
+            shared = not on_cpu and n_world > torch.cuda.device_count()  # ranks share a card
+            return launch(train, n_world, kwargs=args,
+                          backend="gloo" if on_cpu or shared else None,
                           device="cpu" if on_cpu else None)[0]
     from ..data.dataset import create_dataloader
     from ..data.device_aug import augment_batch_device
@@ -179,10 +193,13 @@ def train(
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:  # a worker's own card
         dev = torch.device("cuda", torch.cuda.current_device())
-    mesh = create_mesh(devices=[dev]) if dist.is_initialized() else None
-    rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    mesh = (create_mesh(n_spatial=spatial_shards, devices=[dev]) if dist.is_initialized()
+            else None)
+    rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)  # the data axis
     if mesh is not None:
         local_batch_size(batch_size, mesh)  # JAX's error where the world does not divide
+        if fsdp and world > 1 and mesh.n_spatial > 1:
+            raise fsdp_with_spatial_not_ported()
 
     # -- run dir + config dump (rank 0 names it)
     save_dir = (increment_path(Path(project) / name, exist_ok=exist_ok or resume, mkdir=True)
@@ -282,7 +299,7 @@ def train(
                       use_mosaic=hyp_dict.get("mosaic", 1.0) > 0) if device_aug else None)
     step_fn = make_train_step(model, loss_fn, tx, device_augment=aug_fn, mesh=mesh)
     eval_model = copy.deepcopy(model).eval()  # validation loads the EMA weights into it
-    if fsdp and mesh is not None:
+    if fsdp and mesh is not None and world > 1:
         # ZeRO-3: parameters, momenta and EMA sharded over the data axis
         shard_train_state(mesh, state)
         step_fn = jit_fsdp_step(step_fn, mesh, state)
@@ -295,8 +312,11 @@ def train(
         with open(results_file, "w", newline="") as f:
             csv.writer(f).writerow(RESULTS_HEADER)
 
-    LOGGER.info("starting training for %d epochs (accumulate=%d, device=%s, data axis %d)",
-                epochs, accumulate, dev, world)
+    n_sp, sp_rank = (mesh.n_spatial, mesh.spatial_rank) if mesh is not None else (1, 0)
+    if n_sp > 1 and packed_stem:
+        LOGGER.info("packed-stem training disabled (untested with --spatial-shards), as in JAX")
+    LOGGER.info("starting training for %d epochs (accumulate=%d, device=%s, data axis %d, "
+                "spatial axis %d)", epochs, accumulate, dev, world, n_sp)
     final_results = (0, 0, 0, 0, 0, 0, 0)
     py_step = int(state.step)
     for epoch in range(start_epoch, epochs):
@@ -309,6 +329,9 @@ def train(
                     seed * 1_000_003 + py_step)
             batch["opt_hyperparams"] = lr_sched(py_step // accumulate)
             batch["n_valid"] = int(batch.get("n_valid", batch["images"].shape[0]))
+            if n_sp > 1:  # this rank's image rows of its data share's frames
+                h = batch["images"].shape[1] // n_sp
+                batch["images"] = batch["images"][:, sp_rank * h:(sp_rank + 1) * h]
             state, metrics = step_fn(state, batch)
             losses.append(torch.stack([metrics["box"], metrics["obj"], metrics["cls"]]))
             py_step += 1
@@ -358,11 +381,12 @@ def train(
     return final_results, save_dir
 
 
-def _data_axis(batch_size: int, device) -> int:
+def _data_axis(batch_size: int, device, spatial_shards: int = 1) -> int:
     """JAX's data axis: the largest divisor of the batch that fits the visible
-    cards (1 on the CPU)."""
+    cards over the spatial axis (1 on the CPU)."""
     n_dev = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
-    return max(d for d in range(1, min(max(n_dev, 1), batch_size) + 1) if batch_size % d == 0)
+    avail = max(n_dev // max(spatial_shards, 1), 1)
+    return max(d for d in range(1, min(avail, batch_size) + 1) if batch_size % d == 0)
 
 
 _TRAIN_ARGS = tuple(inspect.signature(train).parameters)
@@ -391,7 +415,7 @@ def parse_opt(argv=None):
     p.add_argument("--cache-images", action="store_true")
     p.add_argument("--half", action="store_true", help="bfloat16 activations")
     p.add_argument("--spatial-shards", type=int, default=1,
-                   help="not ported: more than 1 raises (ROADMAP item 8b)")
+                   help="split each frame's rows over this many ranks (halo exchange)")
     p.add_argument("--fsdp", action="store_true",
                    help="shard parameters, momenta and EMA over the data axis (FSDP)")
     p.add_argument("--debug-nans", action="store_true",

@@ -20,6 +20,16 @@ sums, all-reduced in one collective before any term is formed. The ranks'
 partial losses then sum to the loss of the global batch, JAX's loss under
 GSPMD, and so do their gradients; a rank that holds no targets contributes
 its objectness term and nothing else.
+
+Under spatial sharding (``parallel.spatial``) the logits hold this rank's
+rows of every level's grid. Targets are assigned on the whole grid, as in one
+process; each rank keeps the assignments whose cell lies in its rows (at
+local row indices) and drops the rest, and its objectness term covers its
+rows' cells. The normalisers are summed over the world (the step's
+``data_parallel`` group): the assignments' weights count once, and the row
+count, which every spatial rank of a data share adds, times a share's cells
+per image is the global batch's cell count. So the partial losses again sum
+to the global batch's loss.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import torch.nn.functional as F
 from ..config import DEFAULT_HYP
 from ..ops.boxes import bbox_iou
 from ..parallel.collectives import all_reduce_sum, current_group
+from ..parallel.spatial import current_spatial
 
 
 def smooth_bce(eps: float = 0.1) -> Tuple[float, float]:
@@ -89,6 +100,21 @@ def _mean_over_batch(x: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Ten
     if rows is None:
         return x.mean()
     return x.sum() / (rows.to(x.dtype) * (x.numel() // x.shape[0]))
+
+
+def _grid_rows(h_local: int) -> Tuple[int, int]:
+    """(this rank's first row of a level's grid, the grid's rows): (0, h) in one
+    process, (rank h, n h) under spatial sharding."""
+    share = current_spatial()
+    return (0, h_local) if share is None else (share.rank * h_local, share.n * h_local)
+
+
+def _own_rows(asg: Dict[str, torch.Tensor], row0: int, h: int) -> Dict[str, torch.Tensor]:
+    """The assignments of whole-grid rows [row0, row0 + h) at local rows; the others
+    masked off (their rows clamped into range, never read)."""
+    gj = asg["gj"]
+    inside = (gj >= row0) & (gj < row0 + h)
+    return dict(asg, gj=(gj - row0).clamp(0, h - 1), mask=asg["mask"] & inside)
 
 
 # The neighbour offsets: centre, left, up, right, down (scaled by _G).
@@ -249,7 +275,11 @@ class ComputeLoss:
         levels = []  # the assignments first: the normalisers are sums over them
         for i, pi in enumerate(predictions):
             B, H, W, na, _ = pi.shape
-            asg = build_targets_level(targets, mask, anchors[i], (H, W), self.hyp["anchor_t"])
+            row0, rows_all = _grid_rows(H)
+            asg = build_targets_level(targets, mask, anchors[i], (rows_all, W),
+                                      self.hyp["anchor_t"])
+            if rows_all != H:
+                asg = _own_rows(asg, row0, H)
             b_in = asg["b"].clamp(0, B - 1)
             w = asg["mask"].float()
             if img_weight is not None:
@@ -337,25 +367,31 @@ class AerialDetectionLoss:
         levels = []  # the assignments first: the normalisers are sums over them
         for i, pi in enumerate(predictions):
             _, H, W, _, _ = pi.shape
-            gain = torch.tensor([1.0, 1.0, W, H, W, H], dtype=torch.float32, device=dev)
+            row0, rows_all = _grid_rows(H)
+            gain = torch.tensor([1.0, 1.0, W, rows_all, W, rows_all], dtype=torch.float32,
+                                device=dev)
             t = targets * gain
-            levels.append((t, *self._assign(t, mask, anchors[i], H, W)))
-        local = [x for _, _, m, small in levels for x in (m.sum(), (m & small).sum())]
+            best_a, m, small = self._assign(t, mask, anchors[i], rows_all, W)
+            gj = t[:, 3].to(torch.int32).long().clamp(0, rows_all - 1)
+            m = m & (gj >= row0) & (gj < row0 + H)  # this rank's rows
+            levels.append((t, best_a, m, small, (gj - row0).clamp(0, H - 1)))
+        local = [x for _, _, m, small, _ in levels for x in (m.sum(), (m & small).sum())]
         sums = _global_sums(local + [torch.tensor(float(predictions[0].shape[0]), device=dev)])
         rows = sums[-1] if sums is not None else None
 
         for i, pi in enumerate(predictions):
             pi = pi.float()
             B, H, W, na, _ = pi.shape
-            t, best_a, m, small = levels[i]
+            t, best_a, m, small, gj = levels[i]
             m_sum, small_sum = (sums[2 * i], sums[2 * i + 1]) if sums is not None else (None, None)
             awh = anchors[i]
             gi = t[:, 2].to(torch.int32).long().clamp(0, W - 1)
-            gj = t[:, 3].to(torch.int32).long().clamp(0, H - 1)
+            gj_grid = gj + _grid_rows(H)[0]  # the cell's row in the whole grid
             b = t[:, 0].to(torch.int32).long()
 
             ps = pi[b.clamp(0, B - 1), gj, gi, best_a]
-            pxy = torch.sigmoid(ps[:, 0:2]) * 2.0 - 0.5 + torch.stack([gi.float(), gj.float()], 1)
+            pxy = torch.sigmoid(ps[:, 0:2]) * 2.0 - 0.5 + torch.stack([gi.float(),
+                                                                       gj_grid.float()], 1)
             pwh = (torch.sigmoid(ps[:, 2:4]) * 2.0) ** 2 * awh[best_a]
             iou = bbox_iou(torch.cat([pxy, pwh], 1), t[:, 2:6], format="xywh", iou_type="ciou")
             lbox = lbox + masked_mean(1.0 - iou, m, mask_sum=m_sum) * self.scales[0]

@@ -9,6 +9,13 @@ kernel (K4, ``ops/attention_kernel.py``) in float32 whatever ``dtype`` is, as
 the JAX module's flash gate does. Every module computes in ``dtype`` with
 float32 parameters (flax's ``dtype``/``param_dtype``); LayerNorm normalises in
 float32 and the softmaxes run where flax runs them.
+
+Under spatial sharding (``parallel.spatial``) each module holds this rank's
+image rows: channel attention's mean and max over H x W are reduced over the
+spatial group, spatial attention's 7 x 7 conv reads 3 halo rows each side,
+and cross-layer attention gathers the coarser level's K/V, resizes it whole
+and reads its own rows and the shift's row below. The transformer layer of
+the P5 head runs on gathered tokens (``models/head.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention_kernel import MAX_HEAD_DIM, flash_attention
-from .blocks import Conv2d, Linear
+from ..parallel.spatial import current_spatial, gather_spatial, spatial_max, spatial_sum, \
+    split_spatial
+from .blocks import Conv2d, Linear, conv_rows
 
 FLASH_MIN_TOKENS = 256  # the JAX gate: below it the einsum path runs
 
@@ -45,8 +54,12 @@ class ChannelAttention(nn.Module):
         return self.fc2(F.relu(self.fc1(v)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        avg = x.mean(dim=(2, 3))
-        mx = x.amax(dim=(2, 3))
+        share = current_spatial()
+        if share is None:
+            avg = x.mean(dim=(2, 3))
+        else:  # over every rank's rows
+            avg = spatial_sum(x.sum(dim=(2, 3))) / (x.shape[2] * share.n * x.shape[3])
+        mx = spatial_max(x.amax(dim=(2, 3)))
         gate = torch.sigmoid(self._mlp(avg) + self._mlp(mx))
         return x * gate[:, :, None, None]
 
@@ -61,7 +74,7 @@ class SpatialAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         stats = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
-        return x * torch.sigmoid(self.conv(stats))
+        return x * torch.sigmoid(conv_rows(self.conv, stats))
 
 
 class CBAM(nn.Module):
@@ -128,24 +141,33 @@ class CrossLayerAttention(nn.Module):
         value = key if value is None else value
         n, r = self.heads, self.region_size
         scale = 1.0 / float(np.sqrt(self.query_channels))
-        q = self.q_proj(query)
+        q, k, v = self.q_proj(query), self.k_proj(key), self.v_proj(value)
+        share = current_spatial()
+        row0, rows = 0, q.shape[2]  # the query's first row in the whole map, its rows
+        if share is not None:  # K/V whole on every rank; the query its own rows
+            k, v, rows = gather_spatial(k), gather_spatial(v), q.shape[2] * share.n
+            if self.ref_exact:  # its softmax runs over every row
+                q = gather_spatial(q)
+            else:
+                row0 = share.rank * q.shape[2]
         b, _, h, w = q.shape
-        k = bilinear_resize(self.k_proj(key), h, w)
-        v = bilinear_resize(self.v_proj(value), h, w)
-        heads = lambda t: t.reshape(b, n, t.shape[1] // n, h, w)  # noqa: E731
+        k = bilinear_resize(k, rows, w)
+        v = bilinear_resize(v, rows, w)
+        heads = lambda t: t.reshape(b, n, t.shape[1] // n, t.shape[2], w)  # noqa: E731
         if self.ref_exact:
             scores = (heads(q) * heads(k)).sum(dim=2) * scale          # (B, n, H, W)
             attn = torch.softmax(scores.float(), dim=2)                # over image rows
             out = (float(r * r) * attn[:, :, None]).to(self.dtype) * heads(v)
-            return self.out_proj(out.reshape(b, self.value_channels, h, w))
+            return self.out_proj(split_spatial(out.reshape(b, self.value_channels, h, w)))
 
         lo = -(r - 1) // 2
         shifts = [(lo + i, lo + j) for i in range(r) for j in range(r)]
-        rows = [(torch.arange(h, device=q.device) - dy).clamp(0, h - 1) for dy, _ in shifts]
-        cols = [(torch.arange(w, device=q.device) - dx).clamp(0, w - 1) for _, dx in shifts]
+        at_rows = [(torch.arange(row0, row0 + h, device=q.device) - dy).clamp(0, rows - 1)
+                   for dy, _ in shifts]
+        at_cols = [(torch.arange(w, device=q.device) - dx).clamp(0, w - 1) for _, dx in shifts]
 
         def shifted(t, i):  # t[..., y - dy, x - dx], edges replicated
-            return t.index_select(-2, rows[i]).index_select(-1, cols[i])
+            return t.index_select(-2, at_rows[i]).index_select(-1, at_cols[i])
 
         qh = heads(q)
         d = min(qh.shape[2], self.key_channels // n)

@@ -28,6 +28,16 @@ In a data-parallel step (``parallel.collectives.data_parallel``) a train-mode
 over a batch axis that GSPMD shards: ``SyncBatchNorm``, whose forward and
 backward reduce over the group. A recompute runs the same collectives on
 every rank, in the same order, and leaves the running statistics alone.
+
+Under spatial sharding (``parallel.spatial.spatial_parallel``) each module
+sees this rank's share of the image rows. Every windowed op reads the rows
+its window needs from the neighbouring shares first (``conv_rows``: a k x k
+conv with stride s and top padding p reads p rows above the share and
+max(0, k - 1 - p - (s - 1)) below it, zeros past the image's edges, then
+runs with no row padding; SPP's pools read 13 // 2 rows of -inf). A
+``ConvBlock`` whose share is shorter than 4 rows runs its conv on the
+gathered rows and keeps its own rows of the result, as JAX's
+``_spatial_guard`` gathers such maps. BatchNorm reduces over the world.
 """
 from __future__ import annotations
 
@@ -41,6 +51,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.collectives import current_group, sync_batch_norm
+from ..parallel.spatial import (
+    MIN_ROWS_PER_SHARD, current_spatial, gather_spatial, halo_exchange, halo_rows, split_spatial,
+)
 
 _RECOMPUTE = threading.local()  # the autograd thread that runs a recompute sets it
 
@@ -84,6 +97,37 @@ class Conv2d(nn.Conv2d):
         d = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(d)
         return self._conv_forward(x.to(d), self.weight.to(d), bias)
+
+    def padded(self, x: torch.Tensor, pad) -> torch.Tensor:
+        """The conv with ``pad`` = (left, right, top, bottom) zero padding in place
+        of its own."""
+        d = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(d)
+        left, right, top, bottom = pad
+        if left == right and top == bottom:
+            padding = (top, left)
+        else:
+            x, padding = F.pad(x, pad), 0
+        return F.conv2d(x.to(d), self.weight.to(d), bias, self.stride, padding, self.dilation,
+                        self.groups)
+
+
+def conv_rows(conv: Conv2d, x: torch.Tensor, pad=None) -> torch.Tensor:
+    """``conv`` over ``x`` zero-padded by ``pad`` = (left, right, top, bottom) (a
+    conv built without padding), else with the conv's own padding. Under
+    spatial sharding, over this rank's rows: the halo its window reads, then
+    the conv without row padding (not through the module's call, so its
+    forward hooks do not run); a share of fewer than ``MIN_ROWS_PER_SHARD``
+    rows runs on the whole map and keeps its rows of the result."""
+    if current_spatial() is None:
+        return conv(x if pad is None else F.pad(x, pad))
+    if pad is None:
+        ph, pw = conv.padding
+        pad = (pw, pw, ph, ph)
+    if x.shape[2] < MIN_ROWS_PER_SHARD:
+        return split_spatial(conv.padded(gather_spatial(x), pad))
+    above, below = halo_rows(conv.kernel_size[0], conv.stride[0], pad[2])
+    return conv.padded(halo_exchange(x, above, below), (pad[0], pad[1], 0, 0))
 
 
 class Linear(nn.Linear):
@@ -153,9 +197,7 @@ class ConvBlock(nn.Module):
         self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pad is not None:
-            x = F.pad(x, self.pad)
-        return F.silu(self.bn(self.conv(x)))
+        return F.silu(self.bn(conv_rows(self.conv, x, self.pad)))
 
 
 class Bottleneck(nn.Module):
@@ -209,13 +251,24 @@ class SPPBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cv1(x)
+        h = x.shape[2]
+        # under spatial sharding the pools run on the share and the rows their
+        # windows read (-inf past the image, as the pools' own padding), and keep
+        # the share's rows; else halo is 0 and xe is x
+        halo = max(self.kernel_sizes) // 2 if current_spatial() is not None else 0
+        xe = halo_exchange(x, halo, halo, fill=float("-inf"))
         if self.training:  # JAX's train path: incremental shift-max pools
-            pools, prev_k = [x], 1
+            chain, prev_k = [xe], 1
             for k in self.kernel_sizes:
                 grow = k - prev_k + 1
-                pools.append(maxpool_same_shiftmax(pools[-1], grow) if grow >= 2 and prev_k > 1
-                             else maxpool_same_shiftmax(x, k))
+                chain.append(maxpool_same_shiftmax(chain[-1], grow) if grow >= 2 and prev_k > 1
+                             else maxpool_same_shiftmax(xe, k))
                 prev_k = k
+            pools = [x] + [p.narrow(2, halo, h) for p in chain[1:]]
+        elif halo:
+            pools = [x] + [F.max_pool2d(xe.narrow(2, halo - k // 2, h + 2 * (k // 2)), k,
+                                        stride=1, padding=(0, k // 2))
+                           for k in self.kernel_sizes]
         else:  # max_pool2d pads with -inf, as flax's max_pool does
             pools = [x] + [F.max_pool2d(x, k, stride=1, padding=k // 2)
                            for k in self.kernel_sizes]
@@ -276,4 +329,4 @@ class FocusBlock(nn.Module):
         self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.bn(self.conv(x)))
+        return F.silu(self.bn(conv_rows(self.conv, x)))

@@ -4,7 +4,9 @@ Port of ``skyeye_tpu/models/head.py``. The head takes NCHW features and
 returns the JAX layout, (B, H, W, na, nc + 5) raw logits per level, in the
 head's ``dtype``; decode runs in float32, as in JAX, and gives (B, N, nc + 5) with xywh in input pixels and sigmoided obj/cls. With
 ``transformer_heads`` a ``TransformerLayer`` (named ``transformer{i}``) refines
-the last level's H*W tokens, in row-major (h, w) order, before its conv.
+the last level's H*W tokens, in row-major (h, w) order, before its conv;
+under spatial sharding it runs on the gathered tokens of the whole map, and
+each rank keeps its rows of the result.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.spatial import gather_spatial, split_spatial
 from .attention import TransformerLayer
 from .blocks import Conv2d
 
@@ -39,10 +42,11 @@ class DetectionHead(nn.Module):
         outputs = []
         for i, feat in enumerate(features):
             if i == self.transformer_level:
+                feat = gather_spatial(feat)
                 b, c, h, w = feat.shape
                 tokens = feat.permute(0, 2, 3, 1).reshape(b, h * w, c)
                 tokens = getattr(self, f"transformer{i}")(tokens)
-                feat = tokens.reshape(b, h, w, c).permute(0, 3, 1, 2)
+                feat = split_spatial(tokens.reshape(b, h, w, c).permute(0, 3, 1, 2))
             x = getattr(self, f"pred{i}")(feat)
             b, _, h, w = x.shape
             outputs.append(x.permute(0, 2, 3, 1).reshape(b, h, w, self.num_anchors, self.no))

@@ -1,5 +1,5 @@
-"""Multi-device runs: the mesh, process groups, data-parallel collectives, FSDP
-and the launcher (port of ``skyeye_tpu/parallel``)."""
+"""Multi-device runs: the mesh, process groups, data-parallel collectives,
+spatial sharding, FSDP and the launcher (port of ``skyeye_tpu/parallel``)."""
 from .collectives import current_group, data_parallel
 from .fsdp import jit_fsdp_step, leaf_sharding, shard_train_state, state_shardings
 from .launch import WorkerFailed, launch
@@ -16,6 +16,9 @@ from .mesh import (
     replicated,
     shard_batch,
     shard_batch_multihost,
+)
+from .spatial import (
+    gather_spatial, halo_exchange, spatial_max, spatial_parallel, spatial_sum, split_spatial,
 )
 
 __all__ = [
@@ -39,4 +42,10 @@ __all__ = [
     "replicated",
     "shard_batch",
     "shard_batch_multihost",
+    "gather_spatial",
+    "halo_exchange",
+    "spatial_max",
+    "spatial_parallel",
+    "spatial_sum",
+    "split_spatial",
 ]

@@ -17,6 +17,13 @@ reductions explicit over the data axis's process group:
 
 Outside the context every one of these is the identity, so a single-card
 step runs the code it ran before.
+
+Under spatial sharding (``parallel/spatial.py``) each rank holds some image
+rows of its data share: the step runs in ``data_parallel`` over the world
+(both mesh axes), so BatchNorm's statistics, the loss's normalisers and the
+gradient sum take every rank's rows of every image, as JAX's synced BN over
+sharded spatial rows does. Inside ``spatial_parallel`` alone, with no
+``data_parallel`` around it, they run over the spatial group.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
+
+from .spatial import current_spatial
 
 _STATE = {"group": None}
 
@@ -44,8 +53,12 @@ def data_parallel(group):
 
 
 def current_group():
-    """The process group of the data-parallel step being run, or None."""
-    return _STATE["group"]
+    """The process group of the data-parallel step being run; else, inside
+    ``spatial_parallel``, the spatial group; else None."""
+    if _STATE["group"] is not None:
+        return _STATE["group"]
+    share = current_spatial()
+    return share.group if share is not None else None
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:

@@ -25,6 +25,8 @@ port does the same with ``torch.distributed.fsdp.fully_shard`` (FSDP2):
 
 BatchNorm's running statistics stay whole on every rank (JAX shards them
 too): a few floats a channel, updated from statistics every rank shares.
+
+A mesh with a spatial axis raises NotImplementedError (ROADMAP item 8c).
 """
 from __future__ import annotations
 
@@ -113,6 +115,13 @@ def _like(t: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(chunk.clone(), mesh, param.placements, run_check=False)
 
 
+def fsdp_with_spatial_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "FSDP over a mesh with a spatial axis is not ported: it needs FSDP2 over the data "
+        "dimension of the 2-D mesh with the gradients summed over the spatial one "
+        "(ROADMAP.md, Queue 1 item 8c)")
+
+
 def shard_train_state(mesh: Mesh, state, axis: str = DATA_AXIS):
     """Shard ``state`` (``train.TrainState``) over ``mesh``'s data axis in
     place, as above; returns it. Every rank must hold the same state."""
@@ -120,6 +129,8 @@ def shard_train_state(mesh: Mesh, state, axis: str = DATA_AXIS):
 
     if mesh.device_mesh is None:
         raise ValueError("FSDP needs a mesh over a process group (initialize_distributed)")
+    if mesh.n_spatial > 1:
+        raise fsdp_with_spatial_not_ported()
     layouts = param_layouts(state.model)
     placements = {p: leaf_sharding(mesh, p, axis, layouts.get(k))
                   for k, p in state.model.named_parameters()}

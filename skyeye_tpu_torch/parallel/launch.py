@@ -10,7 +10,9 @@ back to the caller in rank order.
 
 A worker that raises makes the whole run fail: the others are stopped and
 ``launch`` raises ``WorkerFailed`` carrying the worker's rank, exit code and
-traceback. Under ``torchrun`` (``WORLD_SIZE`` in the environment) there is
+traceback. A mesh with a spatial axis takes n_data x n_spatial workers
+(``create_mesh(n_data, n_spatial)`` in them). Under ``torchrun``
+(``WORLD_SIZE`` in the environment) there is
 nothing to start: ``fn`` runs in this process after
 ``initialize_distributed`` joined torchrun's group.
 """

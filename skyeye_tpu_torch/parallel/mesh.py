@@ -7,18 +7,25 @@ CUDA cards, gloo on the CPU) and issues the collectives itself
 (``parallel/collectives.py``). The names are JAX's:
 
   * ``create_mesh``: in a process group, a ``Mesh`` over every process, its
-    ``device_mesh`` a ``DeviceMesh`` with JAX's data axis (what FSDP shards
-    over) and ``group`` that axis's process group; in a single process (a
-    server that keeps one model replica per card), a ``Mesh`` of local
-    devices with no group. Either way ``mesh.shape[DATA_AXIS]`` is the number
-    of batch shares;
-  * ``shard_batch`` / ``shard_batch_multihost``: the rows each device holds;
+    ``device_mesh`` a ``DeviceMesh`` with JAX's ("data", "spatial") axes,
+    the ranks laid out as JAX's ``np.array(devices).reshape(n_data,
+    n_spatial)`` (global rank d * n_spatial + s); ``group`` is the data
+    axis's process group (what FSDP shards over and the device augmentation
+    gathers over), ``spatial_group`` the spatial axis's and ``world_group``
+    both axes'. In a single process (a server that keeps one model replica
+    per card), a ``Mesh`` of local devices with no group. Either way
+    ``mesh.shape[DATA_AXIS]`` is the number of batch shares;
+  * ``shard_batch`` / ``shard_batch_multihost``: the rows each device holds
+    (with ``spatial=True``, its data share's image rows
+    ``[s H / n, (s + 1) H / n)`` of every 4-d array, JAX's
+    ``addressable_shards``);
   * ``replicate_multihost``: rank 0's values on every rank, checked;
   * ``batch_sharding`` / ``replicated``: the DTensor placements of a batch
     and of a replicated tensor.
 
-Splitting image rows over a spatial axis is not ported: a spatial axis
-larger than 1 raises, naming its ROADMAP item.
+Spatial shares must be even: H a multiple of 32 n_spatial, so every level of
+the pyramid splits into whole rows (``check_spatial_rows``; GSPMD pads an
+uneven split instead).
 """
 from __future__ import annotations
 
@@ -35,26 +42,41 @@ SPATIAL_AXIS = "spatial"
 DEFAULT_TIMEOUT_S = 600.0
 
 
-def spatial_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "spatial sharding (a spatial mesh axis larger than 1) is not ported: every conv, "
-        "pool, upsample and BatchNorm needs its own halo exchange (ROADMAP.md, Queue 1 "
-        "item 8b)")
+SPATIAL_ROW_MULTIPLE = 32  # the deepest stride: every level's share is whole rows
+
+
+def check_spatial_rows(height: int, n_spatial: int) -> None:
+    """Raise ValueError unless ``height`` rows split evenly into ``n_spatial``
+    shares at every level of the pyramid (a multiple of 32 n_spatial)."""
+    if n_spatial > 1 and height % (SPATIAL_ROW_MULTIPLE * n_spatial):
+        raise ValueError(
+            f"spatial sharding splits {height} image rows over {n_spatial} ranks only when "
+            f"they are a multiple of {SPATIAL_ROW_MULTIPLE} x {n_spatial} = "
+            f"{SPATIAL_ROW_MULTIPLE * n_spatial}, so that every pyramid level splits into "
+            "whole rows")
 
 
 class Mesh:
-    """A data-parallel mesh: ``shape`` maps each axis name to its size, as JAX's
-    ``Mesh.shape`` does; ``devices`` are this process's devices in data-axis
-    order (one per process in a process group); ``device_mesh`` and ``group``
-    are the ``DeviceMesh`` and process group of the data axis, None in a
+    """A ("data", "spatial") mesh: ``shape`` maps each axis name to its size, as
+    JAX's ``Mesh.shape`` does; ``devices`` are this process's devices in
+    data-major order (one per process in a process group); ``device_mesh`` is
+    the ``DeviceMesh`` and ``group``, ``spatial_group`` and ``world_group`` the
+    process groups of the data axis, the spatial axis and both, None in a
     single process."""
 
-    def __init__(self, devices: Sequence[torch.device], n_data: int,
-                 device_mesh=None):
+    def __init__(self, devices: Sequence[torch.device], n_data: int, device_mesh=None,
+                 n_spatial: int = 1):
         self.devices: List[torch.device] = [torch.device(d) for d in devices]
-        self.shape: Dict[str, int] = {DATA_AXIS: int(n_data), SPATIAL_AXIS: 1}
+        self.shape: Dict[str, int] = {DATA_AXIS: int(n_data), SPATIAL_AXIS: int(n_spatial)}
         self.device_mesh = device_mesh
-        self.group = device_mesh.get_group(DATA_AXIS) if device_mesh is not None else None
+        self.group = self.spatial_group = self.world_group = None
+        if device_mesh is not None:
+            self.group = device_mesh.get_group(DATA_AXIS)
+            if n_spatial > 1:
+                self.spatial_group = device_mesh.get_group(SPATIAL_AXIS)
+                self.world_group = dist.group.WORLD
+            else:
+                self.world_group = self.group
 
     @property
     def rank(self) -> int:
@@ -62,8 +84,17 @@ class Mesh:
         return dist.get_rank(self.group) if self.group is not None else 0
 
     @property
+    def spatial_rank(self) -> int:
+        """This process's index on the spatial axis (0 without one)."""
+        return dist.get_rank(self.spatial_group) if self.spatial_group is not None else 0
+
+    @property
     def size(self) -> int:
         return self.shape[DATA_AXIS]
+
+    @property
+    def n_spatial(self) -> int:
+        return self.shape[SPATIAL_AXIS]
 
     def __repr__(self) -> str:
         where = "process group" if self.group is not None else "one process"
@@ -91,35 +122,44 @@ def create_mesh(n_data: Optional[int] = None, n_spatial: int = 1,
     """A ("data", "spatial") mesh. Defaults to data parallelism over every
     process of the group, or, in a single process, over ``devices`` (default:
     every visible card). In a process group, ``devices`` is this process's
-    device (default ``process_device()``) and ``n_data`` must be the world size."""
-    if n_spatial != 1:
-        raise spatial_not_ported()
+    device (default ``process_device()``) and ``n_data * n_spatial`` must be
+    the world size (``n_data`` defaults to world / ``n_spatial``)."""
+    if n_spatial < 1:
+        raise ValueError(f"a spatial axis of {n_spatial}")
     if dist.is_initialized():
         from torch.distributed.device_mesh import init_device_mesh
 
         world = dist.get_world_size()
-        n_data = world if n_data is None else n_data
-        if n_data != world:
-            raise ValueError(f"a data axis of {n_data} in a process group of {world}: "
+        if n_data is None:
+            if world % n_spatial:
+                raise ValueError(f"a spatial axis of {n_spatial} in a process group of {world}")
+            n_data = world // n_spatial
+        if n_data * n_spatial != world:
+            raise ValueError(f"a mesh of {n_data} x {n_spatial} in a process group of {world}: "
                              "the port runs one process per device")
         dev = torch.device(list(devices)[0]) if devices else process_device()
-        device_mesh = init_device_mesh(dev.type, (n_data,), mesh_dim_names=(DATA_AXIS,))
-        return Mesh([dev], n_data, device_mesh)
+        if n_spatial > 1:
+            device_mesh = init_device_mesh(dev.type, (n_data, n_spatial),
+                                           mesh_dim_names=(DATA_AXIS, SPATIAL_AXIS))
+        else:
+            device_mesh = init_device_mesh(dev.type, (n_data,), mesh_dim_names=(DATA_AXIS,))
+        return Mesh([dev], n_data, device_mesh, n_spatial)
     devices = list(devices) if devices is not None else default_devices()
     if n_data is None:
-        n_data = len(devices)
-    if n_data > len(devices):
-        raise ValueError(f"a data axis of {n_data} over {len(devices)} devices")
-    return Mesh(devices[:n_data], n_data)
+        n_data = max(len(devices) // n_spatial, 1)
+    if n_data * n_spatial > len(devices):
+        raise ValueError(f"a mesh of {n_data} x {n_spatial} over {len(devices)} devices")
+    return Mesh(devices[:n_data * n_spatial], n_data, n_spatial=n_spatial)
 
 
 def batch_sharding(mesh: Mesh, spatial_dim: Optional[int] = None):
-    """The DTensor placement of an image batch: rows over the data axis."""
-    from torch.distributed.tensor import Shard
+    """The DTensor placement of an image batch (B, H, W, C): rows over the data
+    axis, and with ``spatial_dim`` that dimension over the spatial axis."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    if spatial_dim is not None:
-        raise spatial_not_ported()
-    return (Shard(0),)
+    if spatial_dim is None:
+        return (Shard(0),)
+    return (Shard(0), Shard(spatial_dim) if mesh.n_spatial > 1 else Replicate())
 
 
 def replicated(mesh: Mesh):
@@ -139,27 +179,32 @@ def _rows(x, lo: int, hi: int, device):
 
 
 def shard_batch(mesh: Mesh, batch, spatial: bool = False):
-    """A global host batch (a dict of arrays) split by rows over the data axis.
-    In a process group: this process's rows, on its device. In a single
-    process: one dict per device of the mesh, in order. Arrays without a batch
-    dimension go whole to every device."""
-    if spatial:
-        raise spatial_not_ported()
-    n = mesh.size
+    """A global host batch (a dict of arrays) split by rows over the data axis
+    and, with ``spatial``, each 4-d array's image rows (dim 1) over the spatial
+    axis. In a process group: this process's share, on its device. In a single
+    process: one dict per device of the mesh, in data-major order. Arrays
+    without a batch dimension go whole to every device."""
+    n, n_sp = mesh.size, mesh.n_spatial
 
-    def share(r, device):
+    def share(r, s, device):
         out = {}
         for k, v in batch.items():
-            rows = np.asarray(v).shape[0] if np.ndim(v) else 0
+            a = v if isinstance(v, torch.Tensor) else np.asarray(v)
+            rows = a.shape[0] if a.ndim else 0
             if rows and rows % n:
                 raise ValueError(f"global batch {rows} not divisible by data axis {n}")
             per = rows // n
-            out[k] = _rows(v, r * per, (r + 1) * per, device)
+            t = _rows(v, r * per, (r + 1) * per, device)
+            if spatial and n_sp > 1 and t.dim() >= 4:
+                check_spatial_rows(t.shape[1], n_sp)
+                h = t.shape[1] // n_sp
+                t = t[:, s * h:(s + 1) * h].contiguous()
+            out[k] = t
         return out
 
     if mesh.group is not None:
-        return share(mesh.rank, mesh.devices[0])
-    return [share(r, d) for r, d in enumerate(mesh.devices)]
+        return share(mesh.rank, mesh.spatial_rank, mesh.devices[0])
+    return [share(i // n_sp, i % n_sp, d) for i, d in enumerate(mesh.devices)]
 
 
 def shard_batch_multihost(mesh: Mesh, local_batch):
@@ -177,17 +222,18 @@ def replicate_multihost(mesh: Mesh, tree):
     been the same, as from one seed). Raises ValueError on every rank when any
     rank's values differed."""
     dev = mesh.devices[0]
+    group = mesh.world_group  # both axes
     out, same = {}, True
     for k, v in tree.items():
         mine = torch.as_tensor(v).to(dev)
         got = mine.clone()
-        if mesh.group is not None:
-            dist.broadcast(got, src=dist.get_global_rank(mesh.group, 0), group=mesh.group)
+        if group is not None:
+            dist.broadcast(got, src=dist.get_global_rank(group, 0), group=group)
         same = same and bool(torch.equal(got, mine))
         out[k] = got
-    if mesh.group is not None:
+    if group is not None:
         flag = torch.tensor([1 if same else 0], device=dev)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
         same = bool(flag.item())
     if not same:
         raise ValueError("replicate_multihost: the processes passed different values")

@@ -19,9 +19,19 @@ global-batch statistics and the loss divides by global-batch sums; the
 ranks' gradients and metrics are then summed in one collective (a
 parameter FSDP shards arrives summed already). Every rank then applies the
 same update to the same state, so the state stays identical on every rank.
+
+Over a mesh with a spatial axis (``create_mesh(n_data, n_spatial)``), each
+rank is handed its rows of its data share's frames (``shard_batch(...,
+spatial=True)``) and the whole share's targets. The device augmentation
+gathers the whole frames (the spatial group, then the data group), renders
+the data share and keeps this rank's rows. Forward and backward run in
+``parallel.spatial.spatial_parallel`` and in ``data_parallel`` over the
+world, so BatchNorm and the loss's normalisers take every rank's rows, and
+the gradients and metrics are summed over the world.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -30,6 +40,7 @@ import torch
 from torch import nn
 
 from ..parallel.collectives import all_reduce_flat, data_parallel, gather_rows
+from ..parallel.spatial import spatial_parallel
 from .ema import EMAState, ema_init, ema_update
 from .optimizer import RuntimeOptimizer
 
@@ -76,9 +87,10 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
     "loss", "backward" and "optimizer" (the optimizer and the EMA).
 
     ``mesh`` (a ``parallel.Mesh`` over a process group): the batch holds this
-    rank's rows of the global batch (rank r the r-th share), n_valid counts the
-    global batch's valid rows, ``device_augment`` takes a ``rows`` keyword,
-    and the metrics are the global batch's.
+    rank's rows of the global batch (data rank r the r-th share; with a spatial
+    axis, the spatial rank's image rows of it), n_valid counts the global
+    batch's valid rows, ``device_augment`` takes a ``rows`` keyword, and the
+    metrics are the global batch's.
 
     step(state, batch) -> (state, metrics) with metrics loss, box, obj, cls as
     0-d tensors on the device; the state is updated in place.
@@ -94,7 +106,9 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
     if device_augment is not None or norm_dtype != torch.bfloat16:
         norm_dtype = torch.float32
     mark = on_stage or (lambda name: None)
-    group = mesh.group if mesh is not None else None
+    group = mesh.group if mesh is not None else None  # the data axis
+    world = mesh.world_group if mesh is not None else None  # BatchNorm, loss, gradients
+    n_sp = mesh.n_spatial if mesh is not None else 1
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model = state.model
@@ -103,7 +117,9 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
         B = targets.shape[0]
         first = mesh.rank * B if group is not None else 0  # this rank's first global row
         if device_augment is not None and group is not None:
-            # mosaic and mixup read other ranks' rows: the global batch, uint8
+            # mosaic and mixup read other ranks' rows: the global batch's whole frames, uint8
+            if n_sp > 1:
+                images = gather_rows(images.transpose(0, 1), mesh.spatial_group).transpose(0, 1)
             images, targets, mask = (gather_rows(t, group) for t in (images, targets, mask))
         if images.dtype == torch.uint8:
             images = images.to(norm_dtype) / 255.0
@@ -112,6 +128,9 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
                 rows = torch.arange(first, first + B, device=images.device)
                 images, targets, mask = device_augment(images, targets, mask,
                                                        batch["aug_generator"], rows=rows)
+                if n_sp > 1:  # this rank's image rows
+                    h = images.shape[1] // n_sp
+                    images = images[:, mesh.spatial_rank * h:(mesh.spatial_rank + 1) * h]
             else:
                 images, targets, mask = device_augment(images, targets, mask,
                                                        batch["aug_generator"])
@@ -131,7 +150,9 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
         set_dropout_generator(model, step_generator(dropout_seed, state.step, images.device))
         for p in model.parameters():
             p.grad = None
-        with data_parallel(group):
+        spatial = (spatial_parallel(mesh.spatial_group, n_sp, mesh.spatial_rank)
+                   if n_sp > 1 else contextlib.nullcontext())
+        with data_parallel(world), spatial:
             outs = model(images.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
             mark("forward")
             if img_weight is not None:
@@ -141,8 +162,8 @@ def make_train_step(module: nn.Module, loss_fn, tx: RuntimeOptimizer,
             mark("loss")
             loss.backward()
         loss = loss.detach()
-        if group is not None:
-            loss, aux = _sum_gradients_and_metrics(model, loss, aux, group)
+        if world is not None:
+            loss, aux = _sum_gradients_and_metrics(model, loss, aux, world)
         mark("backward")
         set_dropout_generator(model, None)
 

@@ -475,8 +475,18 @@ def test_mesh_helpers_match_jax(ranks):
     assert local.shape[DATA_AXIS] == WORLD and local.group is None
     shares = shard_batch(local, _batch(0))
     assert [tuple(s["images"].shape) for s in shares] == [(2, SIZE, SIZE, 3)] * 2
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        create_mesh(1, n_spatial=2)
+    # a spatial axis: one share per (data, spatial) position, JAX's shards
+    jmesh2 = jcreate_mesh(1, 2, devices=jax.devices()[:2])
+    spatial = create_mesh(1, n_spatial=2, devices=["cpu", "cpu"])
+    assert spatial.shape == dict(jmesh2.shape) == {DATA_AXIS: 1, "spatial": 2}
+    batch = {k: v for k, v in _batch(0).items() if k != "n_valid"}
+    jspatial = jshard(jmesh2, batch, spatial=True)
+    for i, got in enumerate(shard_batch(spatial, batch, spatial=True)):
+        for k, arr in jspatial.items():
+            want = next(s for s in arr.addressable_shards if s.device == jax.devices()[i])
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want.data))
+    with pytest.raises(ValueError, match="multiple of 32 x 2"):
+        shard_batch(spatial, {"images": np.zeros((2, 32, 32, 3), np.uint8)}, spatial=True)
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])

@@ -16,8 +16,10 @@ which is why the comparison stops at two optimizer steps); P, R and the mAPs
 within 1e-3. Also: ``last.pt``/``best.pt`` hold the EMA weights, read back by
 ``SkyEyeDetector`` and by ``validate`` to their epoch's row of ``results.csv``; a
 run stopped after one epoch and resumed gives the uninterrupted run's rows;
-spatial sharding, which is not ported, raises, naming its ROADMAP item (8b;
-multi-device training is held in ``test_torch_port_parallel.py``). Host augmentation (JAX's default), ``remat`` and ``evolve`` are held
+FSDP over a spatial mesh, which is not ported, raises, naming its ROADMAP
+item (8c), and so does a row split that is not even (multi-device training
+is held in ``test_torch_port_parallel.py``, spatial sharding in
+``test_torch_port_spatial.py``). Host augmentation (JAX's default), ``remat`` and ``evolve`` are held
 against JAX in ``test_torch_port_{augment,remat,evolve}.py``.
 """
 import csv
@@ -208,14 +210,17 @@ def test_a_resumed_run_gives_the_uninterrupted_rows(setup, tmp_path):
     assert rows == want
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("spatial_shards", 4, "item 8b"), ("spatial_shards", 2, "item 8"),
+@pytest.mark.parametrize("options,error,item", [
+    # FSDP over the data axis of a spatial mesh (a data axis of 2: two cards a share)
+    (dict(spatial_shards=2, fsdp=True), NotImplementedError, "item 8c"),
+    # rows that do not split into whole rows at every level
+    (dict(spatial_shards=4, img_size=320), ValueError, "multiple of 32 x 4 = 128"),
 ])
-def test_options_that_are_not_ported_raise(option, value, item, tmp_path):
+def test_options_that_are_not_ported_raise(options, error, item, tmp_path, monkeypatch):
+    monkeypatch.setattr(port_train, "_data_axis", lambda *a, **k: 2)
     kw = dict(data={"train": str(tmp_path), "nc": 1}, device_aug=True, project=str(tmp_path),
-              device="cpu")
-    kw[option] = value
-    with pytest.raises(NotImplementedError, match=item):
+              device="cpu", **options)
+    with pytest.raises(error, match=item):
         port_train.train(**kw)
 
 
