@@ -1917,6 +1917,221 @@ def phase_validate(torch, gpu_line, workdir):
                  launches=launches["batched_greedy_nms"])]
 
 
+PREP_N = 16  # frames of each kind
+PREP_SIZES = (1280, 640)
+PREP_KINDS = ("jpeg", "jpeg_progressive", "png", "png_adam7")
+PREP_THREADS = (1, 4, 8)
+PREP_PLAIN_WORKERS = 8  # processes for the numpy version (the card's machine has 8 cores)
+PREP_PYTHON_SAMPLE = 2  # frames of each kind timed on the Python path
+PREP_VALIDATE_KINDS = ("jpeg", "jpeg_progressive", "png_adam7")  # 48 frames
+
+
+def prep_frames(seed: int):
+    """PREP_N seeded 1080x1920 BGR frames: ``frames``' blocks with noise, so that
+    every DCT band and PNG filter is busy."""
+    rng = np.random.RandomState(seed)
+    return [np.clip(f.astype(np.int16) + rng.randint(-12, 13, f.shape), 0, 255).astype(np.uint8)
+            for f in frames(seed, PREP_N)]
+
+
+def write_prep_frame(args):
+    """One frame in one of PREP_KINDS, written by the port's writers."""
+    from skyeye_tpu_torch.data import imageio, jpeg
+
+    path, kind, frame = args
+    if kind == "jpeg":
+        path.write_bytes(jpeg.encode(frame, native=True))
+    elif kind == "jpeg_progressive":
+        path.write_bytes(jpeg.encode_progressive(frame))
+    else:
+        imageio.imwrite_png(path, frame, filter_type=4, interlace=kind == "png_adam7")
+
+
+def prep_plain_worker(path: str, sizes):
+    """The numpy version of the native prep on one file, at each of ``sizes``:
+    {size: (frame, meta)}, or None where it does not decode. Runs in a process
+    of its own; it touches no CUDA."""
+    from skyeye_tpu_torch.data import native
+
+    img = native.decode_rgb_plain(path)
+    if img is None:
+        return None
+    return {s: native.letterbox_plain(img, s, s) for s in sizes}
+
+
+def phase_prep_native(torch, gpu_line, workdir):
+    """JAX's native host prep on the card's host: ``csrc/prep.cu`` against its
+    numpy version byte for byte (meta equal) on 16 frames of 1080x1920 each of
+    baseline JPEG, progressive JPEG, PNG and Adam7 PNG at 1280 and 640 px, and
+    packed 4x4 at 1280; the C path's ms a frame at 1, 4 and 8 threads beside
+    the Python path's (imread + INTER_AREA + letterbox); ``cli.validate`` at
+    its default ``rect=False`` over 48 of the frames (the loader on the native
+    path, K1 counted); ``predict_files`` on the 16 JPEG frames, held against
+    the packed model fed by the numpy prep."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from pathlib import Path
+
+    from skyeye_tpu_torch import SkyEyeDetector
+    from skyeye_tpu_torch.cli import validate as port_validate
+    from skyeye_tpu_torch.data import imageio, native
+    from skyeye_tpu_torch.ops import nms_kernel
+    from skyeye_tpu_torch.ops.letterbox import letterbox
+
+    t_phase = time.perf_counter()
+    root = Path(workdir) / "prep"
+    img_dir, lbl_dir = root / "images" / "val", root / "labels" / "val"
+    for d in (img_dir, lbl_dir, root / "other"):
+        d.mkdir(parents=True)
+    suffix = {"jpeg": "jpg", "jpeg_progressive": "jpg", "png": "png", "png_adam7": "png"}
+    paths = {kind: [(img_dir if kind in PREP_VALIDATE_KINDS else root / "other")
+                    / f"{kind}{i:02d}.{suffix[kind]}" for i in range(PREP_N)]
+             for kind in PREP_KINDS}
+    s_big = PREP_SIZES[0]
+    t0 = time.perf_counter()
+    base = prep_frames(seed=40)
+    h, w = base[0].shape[:2]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_prep_frame, [(paths[k][i], k, base[i]) for k in PREP_KINDS
+                                         for i in range(PREP_N)]))
+    write_s = time.perf_counter() - t0
+    sizes = {k: sum(p.stat().st_size for p in paths[k]) / PREP_N for k in PREP_KINDS}
+    every = [str(p) for k in PREP_KINDS for p in paths[k]]
+
+    # the C path timed on an idle host first: ms a frame at 1, 4 and 8 threads
+    native.prep_batch(every[:2], PREP_SIZES[1], PREP_SIZES[1])
+    c_ms = {k: {t: host_ms(lambda: native.prep_batch([str(p) for p in paths[k]], s_big, s_big,
+                                                      n_threads=t), 1) / PREP_N
+                for t in PREP_THREADS} for k in PREP_KINDS}
+
+    def python_path(p):  # the loader's Python path: decode, INTER_AREA, letterbox
+        im = imageio.imread(p)
+        h0, w0 = im.shape[:2]
+        r = s_big / max(h0, w0)
+        im = imageio.resize_area(im, (int(w0 * r), int(h0 * r)))
+        return letterbox(im, (s_big, s_big), auto=False, scaleup=False)
+
+    python_ms = {k: float(np.median([host_ms(lambda: python_path(p), 1)
+                                     for p in paths[k][:PREP_PYTHON_SAMPLE]]))
+                 for k in PREP_KINDS}
+
+    # the numpy version in processes of their own, while the card works below
+    ctx = multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(PREP_PLAIN_WORKERS, mp_context=ctx)
+    t_plain = time.perf_counter()
+    plain_futures = [pool.submit(prep_plain_worker, p, PREP_SIZES) for p in every]
+
+    # cli.validate at rect=False over 48 frames: labels from predict_files' detections
+    weights = str(Path(workdir) / "skyeye_s.pt")
+    val_paths = [str(p) for k in PREP_VALIDATE_KINDS for p in paths[k]]
+    labeller = SkyEyeDetector(weights=weights, img_size=VALIDATION_IMG, conf_thres=0.25,
+                              device="cuda")
+    labelled = labeller.predict_files(val_paths)
+    n_labels = write_labels(labelled, [(h, w)] * len(val_paths), np.random.RandomState(41),
+                            lambda i: lbl_dir / (Path(val_paths[i]).stem + ".txt"))
+    del labeller, labelled
+    data = {"path": str(root), "val": "images/val", "nc": len(DRONE_NAMES), "names": DRONE_NAMES}
+    prep_calls = []
+    real_prep = native.prep_batch
+
+    def counted_prep(*a, **k):
+        prep_calls.append(len(a[0]))
+        return real_prep(*a, **k)
+
+    nms_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(native, "prep_batch", counted_prep):
+        shipped = port_validate.validate(data, weights=weights, img_size=VALIDATION_IMG,
+                                         batch_size=VALIDATION_BATCH, device="cuda",
+                                         project=str(root / "runs"))
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    k1_validate = nms_kernel.LAUNCHES["batched_greedy_nms"]
+    if prep_calls != [VALIDATION_BATCH] * (len(val_paths) // VALIDATION_BATCH):
+        fail(f"validate's loader did not take the native path: prep_batch calls {prep_calls}")
+    if k1_validate == 0:
+        fail("validation on the native path never launched batched_greedy_nms")
+    figures = [float(v) for v in shipped[0][:4]]
+    if not all(np.isfinite(figures)) or not 0 <= figures[3] <= figures[2] <= 1:
+        fail(f"validation figures out of range: {figures}")
+
+    # predict_files on the 16 JPEG frames
+    det = SkyEyeDetector(weights=weights, img_size=VALIDATION_IMG, device="cuda")
+    jpegs = [str(p) for p in paths["jpeg"]]
+    det.predict_files(jpegs[:1])  # build the packed model
+    torch.cuda.synchronize()
+    nms_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = det.predict_files(jpegs)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    k1_predict = nms_kernel.LAUNCHES["batched_greedy_nms"]
+    if k1_predict != 1:
+        fail(f"predict_files on 16 frames launched batched_greedy_nms {k1_predict} times")
+    for d in res.xyxy:
+        if d.ndim != 2 or d.shape[1] != 6 or not np.isfinite(d).all() or (
+                len(d) and (d[:, :4].min() < 0 or d[:, [0, 2]].max() > w
+                            or d[:, [1, 3]].max() > h)):
+            fail(f"predict_files gave detections out of the frame: {d[:3]}")
+
+    # the numpy version's results: C byte for byte against them
+    plain = [f.result() for f in plain_futures]
+    plain_s = time.perf_counter() - t_plain
+    pool.shutdown()
+    if any(p is None for p in plain):
+        fail("the numpy prep failed to decode a frame the phase wrote")
+    equal = {}
+    for i, k in enumerate(PREP_KINDS):
+        mine = plain[i * PREP_N: (i + 1) * PREP_N]
+        for s in PREP_SIZES:
+            frames_c, meta_c, n_ok = native.prep_batch([str(p) for p in paths[k]], s, s)
+            want = np.stack([m[s][0] for m in mine])
+            meta = np.stack([m[s][1] for m in mine])
+            if n_ok != PREP_N or not np.array_equal(frames_c, want) or not np.array_equal(
+                    meta_c, meta):
+                fail(f"the C prep differs from its numpy version on {k} at {s} px "
+                     f"({int((frames_c != want).sum())} bytes)")
+            equal[f"{k}@{s}"] = True
+    mine = plain[:PREP_N]  # the JPEG frames, packed as predict_files packs them
+    packed_plain = native.s2d4_pack(np.stack([m[s_big][0] for m in mine]))
+    packed_c, meta_c, _ = native.prep_batch_s2d4(jpegs, s_big)
+    if not np.array_equal(packed_c, packed_plain):
+        fail(f"the C prep's 4x4 pack differs from its numpy version at {s_big} px")
+    equal[f"jpeg_s2d4@{s_big}"] = True
+
+    # predict_files against the same packed model fed by the numpy prep
+    nms_kernel.reset_launch_counts()
+    got, n = det.infer(torch.from_numpy(packed_plain).cuda(), (s_big, s_big), packed=True)
+    got, n = got.cpu().numpy(), n.cpu().numpy()
+    for k in range(PREP_N):
+        gain, dw, dh = mine[k][s_big][1]
+        d = got[k, : n[k]].copy()
+        w0, h0 = (s_big - 2 * dw) / gain, (s_big - 2 * dh) / gain
+        d[:, [0, 2]] = np.clip((d[:, [0, 2]] - dw) / gain, 0, w0)
+        d[:, [1, 3]] = np.clip((d[:, [1, 3]] - dh) / gain, 0, h0)
+        if not np.array_equal(d, res.xyxy[k]):
+            fail(f"predict_files frame {k} differs from the packed model on the numpy prep")
+
+    emit("prep_native", frames={k: [PREP_N, h, w] for k in PREP_KINDS},
+         bytes_per_file=sizes, sizes=list(PREP_SIZES), c_equals_plain=equal,
+         ms_per_frame={f"c_{s_big}_by_threads": {k: {str(t): v for t, v in c_ms[k].items()}
+                                                 for k in c_ms},
+                       f"python_{s_big}": python_ms},
+         plain_s=plain_s, plain_workers=PREP_PLAIN_WORKERS, write_s=write_s,
+         validate=dict(rect=False, frames=len(val_paths), labels=n_labels,
+                       prep_batch_calls=len(prep_calls), mAP50=figures[2],
+                       mAP50_95=figures[3], P=figures[0], R=figures[1],
+                       speed=list(shipped[2]), seconds=validate_s, k1_launches=k1_validate),
+         predict_files=dict(frames=PREP_N, detections=sum(len(d) for d in res.xyxy),
+                            seconds=predict_s, k1_launches=k1_predict,
+                            times_ms=res.times, equal_to_plain_prep=True),
+         card=gpu_line, phase_s=time.perf_counter() - t_phase)
+    del det
+    torch.cuda.empty_cache()
+    return [dict(name="batched_greedy_nms", path="prep_native",
+                 launches=k1_validate + k1_predict)]
+
+
 DETECT_IMG = 1280
 DETECT_CODEC_FRAME = (256, 384)  # the C codec against its plain version on this crop
 
@@ -3315,6 +3530,9 @@ def phase_train_multi(torch, gpu_line, workdir):
 SPATIAL_WORLD = 2  # (data 1, spatial 2): two processes on the one card over gloo
 SPATIAL_IMG, SPATIAL_BATCH = 1280, 8  # full width; the one-process step and both ranks fit
 SPATIAL_TRANSFORMER_IMG, SPATIAL_TRANSFORMER_BATCH = 640, 4  # P5: 20 x 20 tokens, K4's gate
+# the float64 split against the float64 one-process step, in shares of the
+# float32 allowances (``_gates``): float64 reordering sits near 1e-10 of them
+SPATIAL_FLOAT64_SHARE = 1e-6
 
 
 def _rows_of(batch, rank, n):
@@ -3370,18 +3588,21 @@ def _spatial_transformer(torch, mesh, batch):
 def spatial_worker(spec):
     """One rank of ``train_spatial``: rank 0 runs the one-process micro-steps on
     the whole frames, then both ranks the spatial micro-steps on their rows
-    (peak memory, ms and exchanges each), then the transformer's micro-step;
-    rank 0 saves each state under ``spec["out"]``."""
+    (peak memory, ms and exchanges each), on the Python path's batch; then the
+    same pair in float64 on the native prep's batch; then the transformer's
+    micro-step; rank 0 saves each state under ``spec["out"]``."""
     import torch
     import torch.distributed as dist
 
+    from skyeye_tpu_torch.data import native
     from skyeye_tpu_torch.parallel import create_mesh
 
     _no_tf32(torch)
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = create_mesh(1, SPATIAL_WORLD, devices=[dev])
     data = _multi_data(spec["workdir"])
-    whole = _multi_batch(torch, data, 0, 1, dev, img=SPATIAL_IMG, batch_size=SPATIAL_BATCH)
+    with mock.patch.object(native, "ENABLED", False):  # the batch the float32 gates were set on
+        whole = _multi_batch(torch, data, 0, 1, dev, img=SPATIAL_IMG, batch_size=SPATIAL_BATCH)
     rank = mesh.spatial_rank
     out = {"backend": dist.get_backend(), "shape": dict(mesh.shape), "spatial_rank": rank}
     runs = [("plain", dict(mesh=None, batch=whole))] if rank == 0 else []
@@ -3395,6 +3616,21 @@ def spatial_worker(spec):
         out[name] = res
         del tensors
     del whole
+    torch.cuda.empty_cache()
+    # the native prep's batch (the --device-aug loader's): float64 on both sides,
+    # and the one-process float32 step read against float64 (reported, no gate)
+    whole = _multi_batch(torch, data, 0, 1, dev, img=SPATIAL_IMG, batch_size=SPATIAL_BATCH)
+    runs = [("plain_native", None, whole, False), ("plain64", None, whole, True)] \
+        if rank == 0 else []
+    runs.append(("spatial64", mesh, _rows_of(whole, rank, SPATIAL_WORLD), True))
+    for name, m, b, f64 in runs:
+        res, tensors = _multi_steps(torch, spec=spec, mesh=m, batch=b, float64=f64,
+                                    batch_size=SPATIAL_BATCH)
+        if rank == 0:
+            torch.save(tensors, f"{spec['out']}/{name}.pt")
+        out[name] = res
+        del tensors
+    del whole, runs
     torch.cuda.empty_cache()
     small = _multi_batch(torch, data, 0, 1, dev, img=SPATIAL_TRANSFORMER_IMG,
                          batch_size=SPATIAL_TRANSFORMER_BATCH)
@@ -3418,9 +3654,14 @@ def phase_train_spatial(torch, gpu_line, workdir):
     processes on the one card over gloo. skyeye_s at 1280 px, batch 8, device
     augmentation, 3 micro-steps (the second updates), from the smoke's weights,
     each rank on its 640 rows of every frame, against the one-process step on
-    the whole frames (rank 0, before): PR 14's gates (``_gates``); each rank's
-    peak memory beside the one-process peak; ms and exchanges a micro-step (no
-    speed is claimed: gloo goes through the host). Then skyeye_l_transformer's
+    the whole frames (rank 0, before): train_multi's gates (``_gates``) on the
+    Python path's batch, where they were set; each rank's peak memory beside
+    the one-process peak; ms and exchanges a micro-step (no speed is claimed:
+    gloo goes through the host). On the native prep's batch the float32
+    one-process step itself lies beyond those allowances from float64, so
+    there the split is held against the one-process step in float64, within
+    ``SPATIAL_FLOAT64_SHARE`` of the allowances and the losses within 1e-5
+    (the float32 one-process step's distance from float64 there is reported). Then skyeye_l_transformer's
     micro-step at 640 px under the same mesh, K4 once a rank on the gathered P5
     tokens, its loss against its one-process step. Last, ``cli.train`` with
     ``spatial_shards=2`` in the same two processes (one epoch at 640 px, batch
@@ -3446,7 +3687,7 @@ def phase_train_spatial(torch, gpu_line, workdir):
     command_s = time.perf_counter() - t0
     start = {k: v.double() for k, v in load_torch_checkpoint(spec["weights"])[0].items()}
     plain, spatial = (torch.load(out_dir / f"{n}.pt") for n in ("plain", "spatial"))
-    # no float64 run here: the parameters' after-update allowance is train_multi's
+    # float32 against float32 (no float64 reference): the after-update allowance is train_multi's
     checks = _gates((ranks[0]["spatial"]["losses"], spatial), (ranks[0]["plain"]["losses"], plain),
                     None, start)
     del plain, spatial
@@ -3455,6 +3696,17 @@ def phase_train_spatial(torch, gpu_line, workdir):
              f"{ranks[0]['plain']['losses']}; {checks}")
     if not all(r["spatial"]["ranks_bitwise_equal"] for r in ranks):
         fail("train_spatial: the ranks' states differ")
+    plain, spatial, plain32 = (torch.load(out_dir / f"{n}.pt")
+                               for n in ("plain64", "spatial64", "plain_native"))
+    checks64 = _gates((ranks[0]["spatial64"]["losses"], spatial),
+                      (ranks[0]["plain64"]["losses"], plain), None, start)
+    float32_from_64 = _gates((ranks[0]["plain_native"]["losses"], plain32),
+                             (ranks[0]["plain64"]["losses"], plain), None, start)
+    del plain, spatial, plain32
+    if (max(checks64["loss_rel_before_update"], checks64["loss_rel_after_update"]) > MULTI_LOSS_REL
+            or max(checks64["state_before_update"][0], checks64["state_after_update"][0])
+            > SPATIAL_FLOAT64_SHARE):
+        fail(f"train_spatial: float64 on the native prep's batch: {checks64}")
     if any(r["backend"] != "gloo" or r["shape"] != {"data": 1, "spatial": SPATIAL_WORLD}
            for r in ranks):
         fail(f"train_spatial: the mesh {[(r['backend'], r['shape']) for r in ranks]}")
@@ -3490,7 +3742,11 @@ def phase_train_spatial(torch, gpu_line, workdir):
          micro_step_ms={"one_process": ranks[0]["plain"]["ms"],
                         "ranks": [r["spatial"]["ms"] for r in ranks]},
          calls_per_micro_step=[r["spatial"]["collectives"] for r in ranks],
-         checks=checks, transformer=dict(tr, img_size=SPATIAL_TRANSFORMER_IMG,
+         checks=checks, native_prep_batch_float64=dict(
+             losses={"one_process": ranks[0]["plain64"]["losses"],
+                     "ranks": [r["spatial64"]["losses"] for r in ranks]}, checks=checks64,
+             one_process_float32_against_float64=float32_from_64),
+         transformer=dict(tr, img_size=SPATIAL_TRANSFORMER_IMG,
                                          batch=SPATIAL_TRANSFORMER_BATCH),
          cli_spatial_shards_2={"img_size": TRAIN_IMG, "batch": TRAIN_BATCH, "epochs": 1,
                                "results_csv": rows, "k1_launches_rank0": k1_launches,
@@ -3628,7 +3884,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # fails where the port is absent
-    from skyeye_tpu_torch.data import imageio, jpeg
+    from skyeye_tpu_torch.data import imageio, jpeg, native
     from skyeye_tpu_torch.ops import attention_kernel, csp_kernel, nms_kernel
 
     gpu_line = nvidia_smi()
@@ -3641,7 +3897,8 @@ def main() -> int:
                  "attention.cu": attention_kernel.attention_library,
                  "csp.cu": csp_kernel.csp_library,
                  "png_unfilter.cu": imageio.png_unfilter_library,  # host code, no kernel
-                 "jpeg.cu": jpeg.jpeg_library}  # host code, no kernel
+                 "jpeg.cu": jpeg.jpeg_library,  # host code, no kernel
+                 "prep.cu": native.prep_library}  # host code, no kernel
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         futures = {src: pool.submit(fn) for src, fn in libraries.items()}
@@ -3665,6 +3922,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="skyeye_smoke_") as workdir:
         summary += phase_export(torch, gpu_line, workdir)
         summary += phase_validate(torch, gpu_line, workdir)
+        summary += phase_prep_native(torch, gpu_line, workdir)
         summary += phase_detect(torch, gpu_line, workdir)
         summary += phase_train(torch, gpu_line, workdir)
         summary += phase_train_transformer(torch, gpu_line, workdir)

@@ -13,6 +13,15 @@ the detector was built for; CUDA is the default. ``Results`` draws
 detector into JAX's int8-neck serving mode (``ops/int8_neck.py``);
 ``model_info`` and ``apply`` are JAX's summary and functional access.
 
+``predict_files`` is JAX's batch path for image files: ``data/native.py``
+decodes, letterboxes (JAX's native geometry) and packs 4x4 on the host
+(``csrc/prep.cu`` on a thread pool where CUDA is available), and the packed
+frames go through the same model with its stem remapped to the packed layout
+(``ops/packed_stem.py``), /255 on the device as JAX's canonical executable
+divides; boxes come back through each frame's ``[gain, dw, dh]``. JAX's
+executable also merges and packs stage 1 for the TPU (ROADMAP item 9); the
+port runs stage 1 as it is, the same function up to float reassociation.
+
 ``mesh`` (``parallel.create_mesh`` over local devices, e.g. every card, or
 two replicas on one card) splits serving by batch, as JAX's ``shard_map``
 over the data axis: one replica of the model per device of the mesh (its
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .data import native
 from .data.imageio import imread, imwrite
 from .models.detector import SkyEyeDetectorModule, create_detector
 from .models.head import decode_predictions
@@ -42,6 +52,7 @@ from .ops.int8_neck import NECK_BLOCKS, _range_key_map, quantize_neck_variables
 from .ops.late_decode import topk_candidates
 from .ops.letterbox import letterbox, letterbox_batch, letterbox_params
 from .ops.nms import nms_batched, serving_max_nms, suppress_candidates_batched
+from .ops.packed_stem import pack_stem_variables
 from .utils.checkpoint import fuse_conv_bn, load_model
 from .utils.general import LOGGER, check_img_size, resolve_device
 from .utils.profiling import model_info
@@ -216,8 +227,10 @@ class SkyEyeDetector:
             raise ValueError("serving splits batches over the data axis: a mesh with a "
                              "spatial axis is for training")
         self.mesh = mesh
-        self._replica_of = None  # the model the replicas were copied from
-        self._replicas: List[torch.nn.Module] = []
+        # (model the replicas were copied from, replicas), for the canonical
+        # (False) and the packed (True) layout
+        self._replicas: Dict[bool, Tuple[torch.nn.Module, List[torch.nn.Module]]] = {}
+        self._packed: Optional[Tuple[torch.nn.Module, SkyEyeDetectorModule]] = None
         self._streams: List = []
         self._pool: Optional[ThreadPoolExecutor] = None
 
@@ -276,44 +289,70 @@ class SkyEyeDetector:
 
     @torch.inference_mode()
     def infer(self, frames: torch.Tensor, out_shape: Tuple[int, int], multi_label: bool = False,
-              agnostic: bool = False, class_mask: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              agnostic: bool = False, class_mask: Optional[torch.Tensor] = None,
+              packed: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W, 3) uint8 RGB frames on the detector's device ->
         ((B, max_det, 6) detections in letterboxed pixels, (B,) counts).
         ``class_mask`` (nc,) bool on that device keeps only the classes it marks
-        (``cli.detect --classes``). With a mesh, split over its replicas (the
-        ``on_stage`` hook then sees only "nms", once every share is done)."""
+        (``cli.detect --classes``). ``packed``: the frames are (B, S/4, S/4, 48),
+        letterboxed to ``out_shape`` and packed 4x4 on the host
+        (``data.native.prep_batch_s2d4``), for the packed-stem model. With a
+        mesh, split over its replicas (the ``on_stage`` hook then sees only
+        "nms", once every share is done)."""
         if self.mesh is not None:
-            return self._infer_sharded(frames, out_shape, multi_label, agnostic, class_mask)
-        return self._infer_on(self.model, frames, out_shape, multi_label, agnostic, class_mask,
-                              self._stage)
+            return self._infer_sharded(frames, out_shape, multi_label, agnostic, class_mask,
+                                       packed)
+        model = self._packed_model() if packed else self.model
+        return self._infer_on(model, frames, out_shape, multi_label, agnostic, class_mask,
+                              self._stage, packed)
 
-    def _replica_models(self) -> List[torch.nn.Module]:
-        """One model per device of the mesh, copied from ``self.model`` (again
-        whenever the model was replaced, as by ``quantize_int8``); the first
-        device's is the model itself where it already lies there."""
+    def _packed_model(self) -> SkyEyeDetectorModule:
+        """The serving model on the 4x4 packed layout: the same configuration,
+        mode and dtype with ``packed_stem``, its stem and down1 remapped
+        (``pack_stem_variables``); built again whenever the model was replaced."""
         from .ops.fused_csp import FusedCSPBlock
 
-        if self._replica_of is not self.model:
+        if self._packed is None or self._packed[0] is not self.model:
+            fused = [m for m in self.model.modules() if isinstance(m, FusedCSPBlock)]
+            model = SkyEyeDetectorModule(self.config, fused_csp=bool(fused),
+                                         dtype=self.model.dtype, packed_stem=True,
+                                         int8_neck=self._int8_neck)
+            model.load_state_dict(pack_stem_variables(self.model.state_dict()), strict=True)
+            model = model.eval().to(next(self.model.parameters()).device)
+            for blk in model.modules():
+                if isinstance(blk, FusedCSPBlock):
+                    blk.prepare()  # K3's packed weights
+            self._packed = (self.model, model)
+        return self._packed[1]
+
+    def _replica_models(self, packed: bool = False) -> List[torch.nn.Module]:
+        """One model per device of the mesh, copied from ``self.model`` (or its
+        packed-stem form; again whenever the model was replaced, as by
+        ``quantize_int8``); the first device's is the model itself where it
+        already lies there."""
+        from .ops.fused_csp import FusedCSPBlock
+
+        source = self._packed_model() if packed else self.model
+        if packed not in self._replicas or self._replicas[packed][0] is not source:
             reps = []
             for i, dev in enumerate(self.mesh.devices):
-                here = next(self.model.parameters()).device == dev
-                m = self.model if i == 0 and here else copy.deepcopy(self.model).to(dev).eval()
+                here = next(source.parameters()).device == dev
+                m = source if i == 0 and here else copy.deepcopy(source).to(dev).eval()
                 for blk in m.modules():
-                    if isinstance(blk, FusedCSPBlock) and m is not self.model:
+                    if isinstance(blk, FusedCSPBlock) and m is not source:
                         blk.prepare()  # K3's packed weights, on this replica's device
                 reps.append(m)
-            self._replicas, self._replica_of = reps, self.model
-        return self._replicas
+            self._replicas[packed] = (source, reps)
+        return self._replicas[packed][1]
 
-    def _infer_sharded(self, frames, out_shape, multi_label, agnostic, class_mask):
+    def _infer_sharded(self, frames, out_shape, multi_label, agnostic, class_mask, packed):
         n = self.mesh.size
         B = frames.shape[0]
         pad = (-B) % n
         if pad:  # copies of the first frame; their rows are dropped below
             frames = torch.cat([frames, frames[:1].expand(pad, *frames.shape[1:])])
         shares = frames.chunk(n)
-        models = self._replica_models()
+        models = self._replica_models(packed)
         devices = self.mesh.devices
         cuda = frames.is_cuda
         main_stream = torch.cuda.current_stream(frames.device) if cuda else None
@@ -328,12 +367,12 @@ class SkyEyeDetector:
                 mask = class_mask.to(dev) if class_mask is not None else None
                 if stream is None:
                     return self._infer_on(models[i], shares[i].to(dev), out_shape, multi_label,
-                                          agnostic, mask, None)
+                                          agnostic, mask, None, packed)
                 with torch.cuda.device(dev), torch.cuda.stream(stream):
                     if main_stream is not None:
                         stream.wait_stream(main_stream)  # the frames are written
                     out = self._infer_on(models[i], shares[i].to(dev, non_blocking=True),
-                                         out_shape, multi_label, agnostic, mask, None)
+                                         out_shape, multi_label, agnostic, mask, None, packed)
                 stream.synchronize()
                 return out
 
@@ -348,10 +387,14 @@ class SkyEyeDetector:
         self._stage("nms")
         return torch.cat(dets)[:B], torch.cat(counts)[:B]
 
-    def _infer_on(self, model, frames, out_shape, multi_label, agnostic, class_mask, stage):
+    def _infer_on(self, model, frames, out_shape, multi_label, agnostic, class_mask, stage,
+                  packed=False):
         """The pipeline on one model and the frames on its device."""
         stage = stage or (lambda name: None)
-        x = (letterbox_batch(frames, out_shape) / 255.0).to(model.dtype)
+        if packed:  # letterboxed on the host; /255 in the model's dtype, as JAX's
+            x = frames.to(model.dtype) / 255.0
+        else:
+            x = (letterbox_batch(frames, out_shape) / 255.0).to(model.dtype)
         stage("letterbox")
         outs = model(x.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
         stage("model")
@@ -437,14 +480,51 @@ class SkyEyeDetector:
 
     def predict_files(self, paths: Sequence[Union[str, Path]], size: Optional[int] = None,
                       multi_label: bool = False, agnostic: bool = False) -> Results:
-        """Detect on image files. JAX's batch path decodes, letterboxes and packs
-        in its native C++ library (``native/skyeye_prep.cc``) and takes
-        ``__call__`` where that library is missing; the port has no native
-        library, so this is ``__call__`` on the paths, which decodes in Python
-        and letterboxes on the device (JAX's native letterbox skips the
-        INTER_AREA pre-resize, so its pixels differ from both)."""
-        return self([str(p) for p in paths], size=size, multi_label=multi_label,
-                    agnostic=agnostic)
+        """Throughput path for image files, JAX's: ``data.native.prep_batch_s2d4``
+        decodes, letterboxes and packs each power-of-two chunk on the host
+        (``csrc/prep.cu``'s thread pool where CUDA is available), the packed
+        frames go through the packed-stem model, and boxes are rescaled from
+        each frame's meta (its size recovered as ``(S - 2 dw) / gain``). A file
+        that does not decode gets no detections. Original images are read
+        lazily, only if ``render``/``save``/``crop`` ask. With
+        ``data.native.ENABLED`` off this is ``__call__``, as JAX's without its
+        library."""
+        paths = [str(p) for p in paths]
+        if not native.ENABLED:
+            return self(paths, size=size, multi_label=multi_label, agnostic=agnostic)
+        out_size = check_img_size(size or self.img_size, self.stride)
+        t0 = time.perf_counter()
+        detections: List[Optional[np.ndarray]] = [None] * len(paths)
+        t_infer = 0.0
+        pos = 0
+        for bs in self._batch_buckets(len(paths)):
+            chunk = list(range(pos, pos + bs))
+            pos += bs
+            packed, meta, _ = native.prep_batch_s2d4([paths[i] for i in chunk], out_size)
+            self._stage("host_prep")
+            t1 = time.perf_counter()
+            x = torch.from_numpy(packed).to(self.device)
+            self._stage("host_to_device")
+            det, n = self.infer(x, (out_size, out_size), multi_label, agnostic, packed=True)
+            det, n = det.cpu().numpy(), n.cpu().numpy()
+            self._stage("device_to_host")
+            t_infer += time.perf_counter() - t1
+            for k, i in enumerate(chunk):
+                gain, dw, dh = meta[k]
+                d = det[k, : n[k]].copy()
+                if gain > 0 and len(d):  # the letterbox's geometry inverts exactly
+                    w0 = (out_size - 2 * dw) / gain
+                    h0 = (out_size - 2 * dh) / gain
+                    d[:, [0, 2]] = np.clip((d[:, [0, 2]] - dw) / gain, 0, w0)
+                    d[:, [1, 3]] = np.clip((d[:, [1, 3]] - dh) / gain, 0, h0)
+                detections[i] = d if gain > 0 else np.zeros((0, 6), np.float32)
+            self._stage("rescale")
+        total = time.perf_counter() - t0
+        times = {
+            "inference_ms": t_infer / max(len(paths), 1) * 1000,
+            "total_ms": total / max(len(paths), 1) * 1000,
+        }
+        return Results(detections, [None] * len(paths), paths, self.names, times)
 
     @staticmethod
     def _load_sources(source) -> Tuple[List[np.ndarray], List[str]]:

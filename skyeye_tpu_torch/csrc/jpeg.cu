@@ -9,9 +9,15 @@
 // port reads the pixels and writes the bytes that OpenCV does, on a machine
 // with no libjpeg. `data/jpeg.py` holds the same algorithm in numpy
 // (`decode_plain`, `encode_plain`) and the rules it follows; the two agree
-// bit for bit and byte for byte. Huffman decoding is sequential, so this is
-// host code; it replaces no TPU kernel (JAX reads JPEG through cv2 on the
-// host too). Built by `ops/cuda_build.py` like the kernels, with a plain C
+// bit for bit and byte for byte. Progressive files are read as jdphuff.c
+// reads them (spectral selection, successive approximation, EOB runs) into
+// the same coefficient arrays. The lenient mode reads damaged data as libjpeg
+// does without an error (zero bits past the end of a segment, the rest of its
+// restart interval skipped, 17 bits and symbol 0 for a code that matches
+// nothing); `csrc/prep.cu`, JAX's native host prep, includes this file and
+// decodes that way. Huffman decoding is sequential, so this is host code; it
+// replaces no TPU kernel (JAX reads JPEG through cv2 or libjpeg on the host
+// too). Built by `ops/cuda_build.py` like the kernels, with a plain C
 // interface.
 
 #include <algorithm>
@@ -51,13 +57,17 @@ struct Comp {
     int id = 0, h = 1, v = 1, tq = 0;
     int bw = 0, bh = 0;            // blocks allocated (MCU padding included)
     std::vector<int32_t> coef;     // bh * bw * 64, natural order
+    int coef_bits[64];             // a progressive frame's Al of each coefficient, -1: unseen
 };
+
+const int kSmoothedCoefs = 10;  // libjpeg-turbo's SAVED_COEFS: zigzag 0..9 decide smoothing
 
 struct Decoder {
     const uint8_t* d;
     int64_t n;
+    bool lenient = false;
     int width = 0, height = 0, hmax = 1, vmax = 1;
-    bool have_frame = false, jfif = false;
+    bool have_frame = false, jfif = false, progressive = false;
     int adobe = -1;
     std::vector<Comp> comps;
     int64_t quant[4][64];
@@ -92,7 +102,8 @@ int segment(const Decoder& dec, int64_t pos, int* marker, int64_t* p, int64_t* l
 }
 
 int parse_sof(Decoder& dec, const uint8_t* s, int64_t len, int marker) {
-    if (marker != 0xC0 && marker != 0xC1) return kUnsupported;
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2) return kUnsupported;
+    dec.progressive = marker == 0xC2;
     if (len < 6) return kTruncated;
     if (s[0] != 8) return kUnsupported;
     dec.height = (s[1] << 8) | s[2];
@@ -118,6 +129,7 @@ int parse_sof(Decoder& dec, const uint8_t* s, int64_t len, int marker) {
         c.bw = mcux * c.h;
         c.bh = mcuy * c.v;
         c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+        for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
     }
     dec.have_frame = true;
     return kOk;
@@ -134,6 +146,9 @@ int parse_dht(Decoder& dec, const uint8_t* s, int64_t len) {
         for (int i = 0; i < 16; ++i) total += counts[i];
         if (pos + 17 + total > len) return kCorrupt;
         const uint8_t* symbols = s + pos + 17;
+        if (tc == 0)  // a DC table's categories (libjpeg refuses more than 15)
+            for (int i = 0; i < total; ++i)
+                if (symbols[i] > 15) return kCorrupt;
         std::vector<uint16_t>& lut = dec.huff[tc][th].lut;
         lut.assign(1 << 16, 0);
         int code = 0, k = 0;
@@ -202,14 +217,18 @@ int entropy_segments(const Decoder& dec, int64_t pos, std::vector<uint8_t>* buf,
     };
     int64_t i = pos;
     while (true) {
-        if (i >= dec.n) return kTruncated;
+        if (i >= dec.n || (d[i] == 0xFF && i + 1 >= dec.n)) {
+            if (!dec.lenient) return kTruncated;
+            close_piece();  // libjpeg reads an EOI at the end of the data
+            *end = dec.n;
+            return kOk;
+        }
         uint8_t b = d[i];
         if (b != 0xFF) {
             buf->push_back(b);
             ++i;
             continue;
         }
-        if (i + 1 >= dec.n) return kTruncated;
         uint8_t m = d[i + 1];
         if (m == 0x00) {
             buf->push_back(0xFF);
@@ -228,10 +247,70 @@ int entropy_segments(const Decoder& dec, int64_t pos, std::vector<uint8_t>* buf,
     }
 }
 
+// One Huffman symbol, or -1 for a code that matches nothing; lenient (as
+// jpeg_huff_decode) such a code takes 17 bits and reads as 0.
+inline int symbol(const Huff* h, Bits& bits, bool lenient) {
+    int e = h->lut[bits.peek16()];
+    if (e) {
+        bits.p += e >> 8;
+        return e & 255;
+    }
+    if (!lenient) return -1;
+    bits.p += 17;
+    return 0;
+}
+
+// decode_mcu_AC_refine on one block; returns the EOB run left, or -1.
+int ac_refine(int32_t* out, Bits& bits, const Huff* lut, int ss, int se, int p1, int m1,
+              int eobrun, bool lenient) {
+    auto correct = [&](int32_t* c) {
+        if (bits.get(1) && !(*c & p1)) *c += *c >= 0 ? p1 : m1;
+    };
+    int j = ss;
+    if (!eobrun) {
+        for (; j <= se; ++j) {
+            int rs = symbol(lut, bits, lenient);
+            if (rs < 0) return -1;
+            int r = rs >> 4, t = rs & 15;
+            if (t) {  // a newly nonzero coefficient (of size 1; libjpeg warns otherwise)
+                t = bits.get(1) ? p1 : m1;
+            } else if (r != 15) {
+                eobrun = (1 << r) + (r ? bits.get(r) : 0);
+                break;
+            }
+            for (; j <= se; ++j) {  // past nonzero coefficients (corrected) and r zero ones
+                int32_t* c = out + kNatural[j];
+                if (*c) {
+                    correct(c);
+                } else if (--r < 0) {
+                    break;
+                }
+            }
+            if (t) out[kNatural[j]] = t;
+        }
+    }
+    if (eobrun) {
+        for (; j <= se; ++j)
+            if (out[kNatural[j]]) correct(out + kNatural[j]);
+        --eobrun;
+    }
+    return eobrun;
+}
+
 int decode_scan(Decoder& dec, const uint8_t* s, int64_t len, int64_t pos, int64_t* end) {
     if (!dec.have_frame || len < 1) return kCorrupt;
     int ns = s[0];
     if (ns < 1 || ns > 4 || len < 4 + 2 * ns) return kCorrupt;
+    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+    if (dec.progressive) {  // jdphuff.c's checks
+        bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+        if (bad || (ah && al != ah - 1) || al > 13) return kCorrupt;
+    } else {  // libjpeg warns and reads a sequential scan whatever its Ss, Se, Ah, Al
+        ss = 0;
+        se = 63;
+        ah = al = 0;
+    }
+    const bool need_dc = ss == 0 && ah == 0, need_ac = ss > 0 || !dec.progressive;
     Comp* comp[4];
     const Huff* dc[4];
     const Huff* ac[4];
@@ -242,12 +321,14 @@ int decode_scan(Decoder& dec, const uint8_t* s, int64_t len, int64_t pos, int64_
             if (c.id == id) comp[i] = &c;
         if (!comp[i]) return kCorrupt;
         int td = tables >> 4, ta = tables & 15;
-        if (td > 3 || ta > 3 || dec.huff[0][td].lut.empty() || dec.huff[1][ta].lut.empty())
+        if (td > 3 || ta > 3 || (need_dc && dec.huff[0][td].lut.empty()) ||
+            (need_ac && dec.huff[1][ta].lut.empty()))
             return kCorrupt;
         dc[i] = &dec.huff[0][td];
         ac[i] = &dec.huff[1][ta];
+        if (dec.progressive)  // the progression status libjpeg's smoothing reads
+            for (int k = ss; k <= se; ++k) comp[i]->coef_bits[k] = al;
     }
-    if (s[1 + 2 * ns] != 0 || s[2 + 2 * ns] != 63 || s[3 + 2 * ns] != 0) return kUnsupported;
 
     std::vector<uint8_t> buf;
     std::vector<int64_t> starts, lens;
@@ -277,15 +358,27 @@ int decode_scan(Decoder& dec, const uint8_t* s, int64_t len, int64_t pos, int64_
                     blk_x.push_back(x);
                 }
     }
+    enum { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+    const int kind = !dec.progressive ? kSequential
+                     : ss == 0        ? (ah ? kDcRefine : kDcFirst)
+                                      : (ah ? kAcRefine : kAcFirst);
+    const int p1 = 1 << al, m1 = -(1 << al);
+    static const uint8_t zeros[kPad] = {0};  // an interval whose data never came
     int64_t n_mcu = (int64_t)mcux * mcuy;
     int64_t per = dec.restart ? dec.restart : n_mcu;
-    if ((int64_t)starts.size() < (n_mcu + per - 1) / per) return kTruncated;
-    for (int64_t m0 = 0; m0 < n_mcu; m0 += per) {
-        int64_t seg = m0 / per;
-        Bits bits{buf.data() + starts[seg]};
-        const int64_t limit = 8 * (lens[seg] + 4);
+    int64_t n_intervals = (n_mcu + per - 1) / per;
+    const int64_t n_seg = (int64_t)starts.size();
+    if (n_seg < n_intervals && !dec.lenient) return kTruncated;
+    bool insufficient = false;  // libjpeg's flag: the data ran out in this interval
+    for (int64_t seg = 0; seg < n_intervals; ++seg) {
+        if (seg > 0 && seg < n_seg) insufficient = false;  // the restart marker was there
+        Bits bits{seg < n_seg ? buf.data() + starts[seg] : zeros};
+        const int64_t real = seg < n_seg ? 8 * lens[seg] : 0;
         int pred[4] = {0, 0, 0, 0};
+        int eobrun = 0;
+        const int64_t m0 = seg * per;
         for (int64_t m = m0; m < std::min(m0 + per, n_mcu); ++m) {
+            if (insufficient) continue;
             int64_t my = m / mcux, mx = m % mcux;
             for (size_t b = 0; b < blk_k.size(); ++b) {
                 int k = blk_k[b];
@@ -293,33 +386,78 @@ int decode_scan(Decoder& dec, const uint8_t* s, int64_t len, int64_t pos, int64_
                 int h = ns == 1 ? 1 : c.h, v = ns == 1 ? 1 : c.v;
                 int32_t* out = c.coef.data() +
                                ((my * v + blk_y[b]) * c.bw + mx * h + blk_x[b]) * 64;
-                int e = dc[k]->lut[bits.peek16()];
-                if (!e) return kCorrupt;
-                bits.p += e >> 8;
-                int t = e & 255;
-                pred[k] += t ? extend(bits.get(t), t) : 0;
-                out[0] = pred[k];
-                for (int j = 1; j < 64;) {
-                    e = ac[k]->lut[bits.peek16()];
-                    if (!e) return kCorrupt;
-                    bits.p += e >> 8;
-                    int r = (e & 255) >> 4;
-                    t = e & 15;
-                    if (t) {
-                        j += r;
-                        out[kNatural[j]] = extend(bits.get(t), t);
-                        ++j;
-                    } else if (r == 15) {
-                        j += 16;
+                if (kind == kSequential || kind == kDcFirst) {
+                    int t = symbol(dc[k], bits, dec.lenient);
+                    if (t < 0) return kCorrupt;
+                    pred[k] += t ? extend(bits.get(t), t) : 0;
+                    out[0] = kind == kSequential ? pred[k] : pred[k] * p1;
+                }
+                if (kind == kSequential) {
+                    for (int j = 1; j < 64;) {
+                        int rs = symbol(ac[k], bits, dec.lenient);
+                        if (rs < 0) return kCorrupt;
+                        int r = rs >> 4, t = rs & 15;
+                        if (t) {
+                            j += r;
+                            out[kNatural[j]] = extend(bits.get(t), t);
+                            ++j;
+                        } else if (r == 15) {
+                            j += 16;
+                        } else {
+                            break;
+                        }
+                    }
+                } else if (kind == kDcRefine) {
+                    if (bits.get(1)) out[0] |= p1;
+                } else if (kind == kAcFirst) {
+                    if (eobrun) {
+                        --eobrun;
                     } else {
-                        break;
+                        for (int j = ss; j <= se; ++j) {
+                            int rs = symbol(ac[k], bits, dec.lenient);
+                            if (rs < 0) return kCorrupt;
+                            int r = rs >> 4, t = rs & 15;
+                            if (t) {
+                                j += r;
+                                out[kNatural[j]] = extend(bits.get(t), t) * p1;
+                            } else if (r == 15) {
+                                j += 15;
+                            } else {
+                                eobrun = (1 << r) - 1 + (r ? bits.get(r) : 0);
+                                break;
+                            }
+                        }
+                    }
+                } else if (kind == kAcRefine) {
+                    eobrun = ac_refine(out, bits, ac[k], ss, se, p1, m1, eobrun, dec.lenient);
+                    if (eobrun < 0) return kCorrupt;
+                }
+                if (bits.p > real) {  // the block read past the segment's data
+                    if (!dec.lenient) {
+                        if (bits.p > real + 32) return kCorrupt;
+                    } else {  // libjpeg reads on in zeros, which lie anywhere past the end
+                        bits.p = real;
+                        insufficient = true;
                     }
                 }
-                if (bits.p > limit) return kCorrupt;  // the data ran out inside a block
             }
         }
     }
     return kOk;
+}
+
+// libjpeg's smoothing_ok: a progressive frame whose DC is known for every
+// component and one of whose first ten coefficients is unfinished somewhere.
+bool smoothing_would_apply(const Decoder& dec) {
+    bool useful = false;
+    for (const Comp& c : dec.comps) {
+        if (!dec.quant_defined[c.tq]) return false;
+        for (int k = 0; k < kSmoothedCoefs; ++k)
+            if (!dec.quant[c.tq][kNatural[k]]) return false;
+        if (c.coef_bits[0] < 0) return false;
+        for (int k = 1; k < kSmoothedCoefs; ++k) useful = useful || c.coef_bits[k] != 0;
+    }
+    return useful;
 }
 
 void idct_1d(const int64_t s[8], int64_t out[8]) {
@@ -700,18 +838,20 @@ void segment_header(Writer& w, int marker, int payload_len) {
 
 }  // namespace
 
-// data: n bytes of a JPEG file; bgr: height x width x 3 bytes, which the caller
-// read from the frame header. Returns 0, or 1 (truncated), 2 (corrupt), 3 (a kind
-// this decoder does not read); the image is then undefined.
-extern "C" int skyeye_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* bgr, int width,
-                                  int height) {
-    Decoder dec;
-    dec.d = data;
-    dec.n = n;
+namespace {
+
+// Parse a JPEG and decode its scans into dec's coefficient arrays (the frame's
+// size in dec.width and dec.height). Returns 0, or 1 (truncated), 2 (corrupt),
+// 3 (a kind this decoder does not read, or a progressive frame libjpeg would
+// smooth).
+int decode_coefficients(Decoder& dec) {
+    const uint8_t* data = dec.d;
+    const int64_t n = dec.n;
     if (n < 2 || data[0] != 0xFF || data[1] != 0xD8) return kCorrupt;
     int64_t pos = 2;
     int scans = 0;
     while (true) {
+        if (dec.lenient && pos >= n) break;  // libjpeg reads an EOI at the end of the data
         int marker;
         int64_t p, len, next;
         int rc = segment(dec, pos, &marker, &p, &len, &next);
@@ -746,15 +886,113 @@ extern "C" int skyeye_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* bgr, 
         if (rc) return rc;
     }
     if (!scans || !dec.have_frame) return kTruncated;
+    if (dec.progressive && smoothing_would_apply(dec)) return kUnsupported;
+    return kOk;
+}
+
+}  // namespace
+
+// data: n bytes of a JPEG file; bgr: height x width x 3 bytes, which the caller
+// read from the frame header. Returns 0, or 1 (truncated), 2 (corrupt), 3 (a kind
+// this decoder does not read); the image is then undefined.
+extern "C" int skyeye_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* bgr, int width,
+                                  int height) {
+    Decoder dec;
+    dec.d = data;
+    dec.n = n;
+    int rc = decode_coefficients(dec);
+    if (rc) return rc;
     if (dec.width != width || dec.height != height) return kCorrupt;
     return reconstruct(dec, bgr);
 }
 
-// img: height x width x channels (3: BGR, 1: gray) bytes. Writes the JPEG that
-// cv2.imwrite writes at IMWRITE_JPEG_QUALITY quality (4:2:0 for colour, the
-// standard Huffman tables) to out; returns its length, or -1 when cap is short.
-extern "C" int64_t skyeye_jpeg_encode(const uint8_t* img, int height, int width, int channels,
-                                      int quality, uint8_t* out, int64_t cap) {
+namespace {
+
+// One scan of jpeg_simple_progression: components (indices into the planes),
+// spectral band and successive approximation.
+struct ScanSpec {
+    int n, comps[3], ss, se, ah, al;
+};
+
+// Symbols and bits of one block in a progressive scan (jcphuff.c), each block
+// ending its own EOB run (the standard tables have no EOBn symbols past EOB0).
+void encode_progressive_block(Writer& w, const int32_t* blk, int* pred, const ScanSpec& sc,
+                              const Code& dc, const Code& ac) {
+    if (sc.ss == 0) {  // DC: first (Huffman-coded differences) or refine (one bit)
+        const int t = blk[0] >> sc.al;  // arithmetic shift, as IRIGHT_SHIFT
+        if (sc.ah) {
+            w.put(t & 1, 1);
+            return;
+        }
+        int diff = t - *pred;
+        *pred = t;
+        int a = diff < 0 ? -diff : diff, s = 0;
+        while (a >> s) ++s;
+        w.put(dc.code[s], dc.len[s]);
+        w.put(diff < 0 ? diff + (1 << s) - 1 : diff, s);
+        return;
+    }
+    int absval[64];
+    int eob = 0;
+    for (int k = sc.ss; k <= sc.se; ++k) {
+        int v = blk[kNatural[k]];
+        absval[k] = (v < 0 ? -v : v) >> sc.al;
+        if (absval[k] == 1) eob = k;
+    }
+    int r = 0;
+    if (!sc.ah) {  // AC first
+        for (int k = sc.ss; k <= sc.se; ++k) {
+            int t = absval[k];
+            if (!t) {
+                ++r;
+                continue;
+            }
+            while (r > 15) {
+                w.put(ac.code[0xF0], ac.len[0xF0]);
+                r -= 16;
+            }
+            int s = 0;
+            while (t >> s) ++s;
+            w.put(ac.code[(r << 4) | s], ac.len[(r << 4) | s]);
+            w.put(blk[kNatural[k]] < 0 ? ~t : t, s);
+            r = 0;
+        }
+        if (r) w.put(ac.code[0], ac.len[0]);
+        return;
+    }
+    int br[64], nbr = 0;  // AC refine: correction bits waiting for their symbol
+    auto flush_br = [&]() {
+        for (int i = 0; i < nbr; ++i) w.put(br[i], 1);
+        nbr = 0;
+    };
+    for (int k = sc.ss; k <= sc.se; ++k) {
+        int t = absval[k];
+        if (!t) {
+            ++r;
+            continue;
+        }
+        while (r > 15 && k <= eob) {
+            w.put(ac.code[0xF0], ac.len[0xF0]);
+            r -= 16;
+            flush_br();
+        }
+        if (t > 1) {  // already nonzero: its next bit
+            br[nbr++] = t & 1;
+            continue;
+        }
+        w.put(ac.code[(r << 4) | 1], ac.len[(r << 4) | 1]);
+        w.put(blk[kNatural[k]] < 0 ? 0 : 1, 1);
+        flush_br();
+        r = 0;
+    }
+    if (r || nbr) {
+        w.put(ac.code[0], ac.len[0]);
+        flush_br();
+    }
+}
+
+int64_t encode(const uint8_t* img, int height, int width, int channels, int quality, uint8_t* out,
+               int64_t cap, bool progressive) {
     const bool gray = channels == 1;
     quality = std::min(std::max(quality, 1), 100);
     const int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
@@ -835,7 +1073,7 @@ extern "C" int64_t skyeye_jpeg_encode(const uint8_t* img, int height, int width,
         for (int i = 0; i < 64; ++i) w.byte((uint8_t)qtab[t][kNatural[i]]);
     }
     const int nc = (int)planes.size();
-    segment_header(w, 0xC0, 6 + 3 * nc);
+    segment_header(w, progressive ? 0xC2 : 0xC0, 6 + 3 * nc);
     w.byte(8);
     w.byte((uint8_t)(height >> 8));
     w.byte((uint8_t)(height & 255));
@@ -857,6 +1095,56 @@ extern "C" int64_t skyeye_jpeg_encode(const uint8_t* img, int height, int width,
             w.bytes(spec, 16 + count);
             make_code(spec, &codes[2 * t + cls]);
         }
+    if (progressive) {
+        // jpeg_simple_progression's script (jcparam.c) for YCbCr or gray
+        static const ScanSpec kColor[10] = {
+            {3, {0, 1, 2}, 0, 0, 0, 1}, {1, {0}, 1, 5, 0, 2},  {1, {2}, 1, 63, 0, 1},
+            {1, {1}, 1, 63, 0, 1},      {1, {0}, 6, 63, 0, 2}, {1, {0}, 1, 63, 2, 1},
+            {3, {0, 1, 2}, 0, 0, 1, 0}, {1, {2}, 1, 63, 1, 0}, {1, {1}, 1, 63, 1, 0},
+            {1, {0}, 1, 63, 1, 0}};
+        static const ScanSpec kGray[6] = {{1, {0}, 0, 0, 0, 1},  {1, {0}, 1, 5, 0, 2},
+                                          {1, {0}, 6, 63, 0, 2}, {1, {0}, 1, 63, 2, 1},
+                                          {1, {0}, 0, 0, 1, 0},  {1, {0}, 1, 63, 1, 0}};
+        const ScanSpec* script = gray ? kGray : kColor;
+        for (int sc_i = 0; sc_i < (gray ? 6 : 10); ++sc_i) {
+            const ScanSpec& sc = script[sc_i];
+            segment_header(w, 0xDA, 4 + 2 * sc.n);
+            w.byte((uint8_t)sc.n);
+            for (int i = 0; i < sc.n; ++i) {
+                w.byte((uint8_t)(sc.comps[i] + 1));
+                w.byte((uint8_t)(planes[sc.comps[i]].table * 0x11));
+            }
+            w.byte((uint8_t)sc.ss);
+            w.byte((uint8_t)sc.se);
+            w.byte((uint8_t)((sc.ah << 4) | sc.al));
+            int pred[3] = {0, 0, 0};
+            if (sc.n == 1) {  // non-interleaved: the component's own blocks in raster order
+                const Plane& p = planes[sc.comps[0]];
+                for (int by = 0; by < p.rows; ++by)
+                    for (int bx = 0; bx < p.cols; ++bx)
+                        encode_progressive_block(
+                            w, p.coef.data() + ((size_t)by * p.alloc_cols + bx) * 64, &pred[0], sc,
+                            codes[2 * p.table], codes[2 * p.table + 1]);
+            } else {
+                for (int my = 0; my < mcuy; ++my)
+                    for (int mx = 0; mx < mcux; ++mx)
+                        for (int k = 0; k < nc; ++k) {
+                            const Plane& p = planes[k];
+                            for (int y = 0; y < p.v; ++y)
+                                for (int x = 0; x < p.h; ++x) {
+                                    size_t b = (size_t)(my * p.v + y) * p.alloc_cols + mx * p.h + x;
+                                    encode_progressive_block(w, p.coef.data() + b * 64, &pred[k],
+                                                             sc, codes[2 * p.table],
+                                                             codes[2 * p.table + 1]);
+                                }
+                        }
+            }
+            w.flush();
+        }
+        w.byte(0xFF);
+        w.byte(0xD9);
+        return w.overflow ? -1 : w.n;
+    }
     segment_header(w, 0xDA, 4 + 2 * nc);
     w.byte((uint8_t)nc);
     for (int k = 0; k < nc; ++k) {
@@ -891,4 +1179,23 @@ extern "C" int64_t skyeye_jpeg_encode(const uint8_t* img, int height, int width,
     w.byte(0xFF);
     w.byte(0xD9);
     return w.overflow ? -1 : w.n;
+}
+
+}  // namespace
+
+// img: height x width x channels (3: BGR, 1: gray) bytes. Writes the JPEG that
+// cv2.imwrite writes at IMWRITE_JPEG_QUALITY quality (4:2:0 for colour, the
+// standard Huffman tables) to out; returns its length, or -1 when cap is short.
+extern "C" int64_t skyeye_jpeg_encode(const uint8_t* img, int height, int width, int channels,
+                                      int quality, uint8_t* out, int64_t cap) {
+    return encode(img, height, width, channels, quality, out, cap, false);
+}
+
+// The same coefficients written progressive (SOF2), in jpeg_simple_progression's
+// ten scans (six for gray) with the standard tables, each block closing its own
+// EOB run. Decodes to the same pixels as skyeye_jpeg_encode's file.
+extern "C" int64_t skyeye_jpeg_encode_progressive(const uint8_t* img, int height, int width,
+                                                  int channels, int quality, uint8_t* out,
+                                                  int64_t cap) {
+    return encode(img, height, width, channels, quality, out, cap, true);
 }

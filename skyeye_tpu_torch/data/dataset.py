@@ -40,8 +40,15 @@ on one thread and renders them on its workers, so its batches are the same
 for any number of workers, and equal JAX's with one worker (JAX's workers
 share one generator, so with more than one its draws follow thread timing).
 
-JAX's native C++ decode path for square batches is not ported (ROADMAP.md);
-this is JAX's Python path.
+Square batches without augmentation (JAX's default validation, the per-epoch
+validation in training and the ``--device-aug`` training loader) take JAX's
+native path where JAX takes it: a dataset that is not augmented and not rect,
+``bgr_to_rgb``, every file ``.jpg``/``.jpeg``/``.png``, and
+``native.ENABLED``. Each share of a batch is then decoded and letterboxed by
+``native.prep_batch`` in one call (JAX's native geometry, no INTER_AREA
+pre-resize), and the labels are mapped through its ``[gain, dw, dh]`` and
+``dataset.shapes``, as JAX maps them; a frame that does not decode is zeros
+and keeps its labels as they are, as in JAX.
 """
 from __future__ import annotations
 
@@ -62,6 +69,7 @@ import numpy as np
 from ..config import DEFAULT_HYP
 from ..ops.letterbox import letterbox
 from ..utils.general import LOGGER
+from . import native
 from .augment import (
     apply_hsv, blend, build_affine_matrix, flip_lr, flip_ud, hsv_gains, warp_with_matrix,
     xywhn_to_xyxy, xyxy_to_xywhn,
@@ -462,10 +470,36 @@ class BatchLoader:
         self.rng = np.random.default_rng(seed)
         self.bgr_to_rgb = bgr_to_rgb
         self.epoch = 0
+        # JAX's native path: plain square batches of JPEG/PNG files, RGB out
+        self._use_native = (native.ENABLED and not dataset.augment and not dataset.rect
+                            and bgr_to_rgb and all(f.rsplit(".", 1)[-1].lower() in native.SUFFIXES
+                                                   for f in dataset.img_files))
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
+
+    def _native_items(self, items: Sequence[int]) -> List[Tuple[np.ndarray, np.ndarray,
+                                                                    np.ndarray]]:
+        """JAX's ``_native_assemble`` over dataset items: one ``prep_batch``, the
+        labels mapped from the original frame to the letterboxed one."""
+        ds = self.dataset
+        s = ds.img_size
+        batch, meta, _ = native.prep_batch([ds.img_files[i] for i in items], s, s,
+                                           n_threads=max(self.workers, 2))
+        out = []
+        for k, i in enumerate(items):
+            labels = ds.labels[i].copy()
+            gain, dw, dh = meta[k]
+            w0, h0 = ds.shapes[i]  # (w, h) native
+            if len(labels) and gain > 0:  # normalized in the original -> in the letterbox
+                labels[:, 1] = (labels[:, 1] * w0 * gain + dw) / s
+                labels[:, 2] = (labels[:, 2] * h0 * gain + dh) / s
+                labels[:, 3] = labels[:, 3] * w0 * gain / s
+                labels[:, 4] = labels[:, 4] * h0 * gain / s
+            t, m = ds.padded_labels(labels)
+            out.append((batch[k], t, m))
+        return out
 
     def _item(self, draws: Dict) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         img, labels = self.dataset.render(draws)
@@ -483,8 +517,22 @@ class BatchLoader:
         return [j if j < n_valid else (j - n_valid) % n_valid
                 for j in range(lo, lo + self.local_batch)]
 
+    def _submit(self, ex: ThreadPoolExecutor, idxs: Sequence[int], rows: List[int]):
+        """Start rendering this rank's items of a batch; returns what
+        ``_assemble`` waits on: {position in the batch: future of its item}, or
+        on the native path (positions, the future of their ``_native_items``)."""
+        draws = [self.dataset.draw(i) for i in idxs]  # one stream over the global batch
+        keys = list(dict.fromkeys(rows))
+        if self._use_native:
+            return keys, ex.submit(self._native_items, [int(idxs[k]) for k in keys])
+        return {k: ex.submit(self._item, draws[k]) for k in keys}
+
     def _assemble(self, idxs: Sequence[int], rows: List[int], futures) -> Dict[str, np.ndarray]:
-        items = {k: f.result() for k, f in futures.items()}
+        if self._use_native:
+            keys, fut = futures
+            items = dict(zip(keys, fut.result()))
+        else:
+            items = {k: f.result() for k, f in futures.items()}
         imgs, tgts, masks = zip(*(items[k] for k in rows))
         n_valid = len(idxs)
         lo = self.rank * self.local_batch
@@ -531,10 +579,8 @@ class BatchLoader:
             try:
                 pending: Deque = deque()
                 for idxs in batches:
-                    draws = [self.dataset.draw(i) for i in idxs]
                     rows = self._rows(len(idxs))
-                    pending.append((idxs, rows, {k: ex.submit(self._item, draws[k])
-                                                 for k in dict.fromkeys(rows)}))
+                    pending.append((idxs, rows, self._submit(ex, idxs, rows)))
                     if len(pending) > self.prefetch and (
                             closed.is_set() or not put(self._assemble(*pending.popleft()))):
                         return

@@ -7,14 +7,18 @@ The port's stand-in for what ``skyeye_tpu``'s data path takes from them:
                      IEND with their CRCs, so a truncated or corrupt PNG raises,
                      as ``verify()`` does
   ``imread``         ``cv2.imread(path)`` (IMREAD_COLOR): an (H, W, 3) uint8 BGR
-                     array, for PNG (every colour type and bit depth, no
-                     interlacing), uncompressed BMP and sequential JPEG
-                     (``data/jpeg.py``, EXIF orientation applied)
+                     array, for PNG (every colour type and bit depth, Adam7
+                     interlacing), uncompressed BMP and sequential or
+                     progressive JPEG (``data/jpeg.py``, EXIF orientation
+                     applied)
   ``resize_area``    ``cv2.resize(..., INTER_AREA)`` on uint8 HWC, shrinking
   ``resize_linear``  ``cv2.resize(..., INTER_LINEAR)`` on uint8 HWC
   ``imwrite``        ``cv2.imwrite(path, im)`` for ``.jpg``/``.jpeg`` and ``.bmp``
                      (the bytes cv2 writes) and ``.png`` (``imwrite_png``)
-  ``imwrite_png``    a PNG of one filter type
+  ``imwrite_png``    a PNG of one filter type, optionally Adam7-interlaced
+  ``png_parse``      a PNG's header, palette and inflated image data
+  ``png_rgb``        those as (H, W, 3) uint8 RGB, as libpng gives them with
+                     expand, strip_16, strip_alpha and gray_to_rgb
 
 The resizes repeat OpenCV's arithmetic (its coefficient tables, float32 area
 sums rounded half to even, 11-bit fixed-point linear weights with the vector
@@ -23,7 +27,9 @@ path's rounding), so they equal ``cv2.resize`` bit for bit.
 PNG rows are filtered: filters 3 and 4 predict a byte from its left neighbour
 after unfiltering, so ``unfilter`` runs a host C loop (``csrc/png_unfilter.cu``,
 built like the kernels) where CUDA is available, and ``unfilter_plain``, the
-same arithmetic in numpy along anti-diagonals, elsewhere.
+same arithmetic in numpy along anti-diagonals, elsewhere. An Adam7 file is
+seven reduced images, each filtered on its own: each pass is unfiltered and
+unpacked alone, then scattered to its pixels.
 """
 from __future__ import annotations
 
@@ -32,8 +38,9 @@ import functools
 import math
 import struct
 import zlib
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +49,9 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples a pixel, and the bit depths the PNG standard allows for it
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (x0, y0, dx, dy) of each pass
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 
 
 class ImageFormatError(ValueError):
@@ -50,8 +60,10 @@ class ImageFormatError(ValueError):
 
 # -- headers --------------------------------------------------------------------
 
-def _png_chunks(data: bytes) -> Iterator[Tuple[bytes, bytes]]:
-    """(type, payload) of each chunk to IEND, CRCs checked; raises on truncation."""
+def _png_chunks(data: bytes, strict: bool = True) -> Iterator[Tuple[bytes, bytes]]:
+    """(type, payload) of each chunk to IEND, CRCs checked; raises on truncation.
+    Not ``strict``: as libpng reads, an ancillary chunk (lower-case first letter)
+    with a bad CRC is dropped, not refused."""
     if data[:8] != PNG_SIGNATURE:
         raise ImageFormatError("not a PNG file")
     pos = 8
@@ -65,8 +77,10 @@ def _png_chunks(data: bytes) -> Iterator[Tuple[bytes, bytes]]:
         payload = data[pos + 8: end]
         (crc,) = struct.unpack(">I", data[end: end + 4])
         if zlib.crc32(ctype + payload) != crc:
-            raise ImageFormatError(f"broken PNG file: bad CRC in a {ctype!r} chunk")
-        yield ctype, payload
+            if strict or not ctype[:1].islower():
+                raise ImageFormatError(f"broken PNG file: bad CRC in a {ctype!r} chunk")
+        else:
+            yield ctype, payload
         if ctype == b"IEND":
             return
         pos = end + 4
@@ -212,54 +226,116 @@ def unfilter_plain(filtered: np.ndarray, bpp: int) -> np.ndarray:
 
 # -- decoding -------------------------------------------------------------------
 
-def _png_read(data: bytes) -> np.ndarray:
-    chunks = _png_chunks(data)
+@dataclass
+class PngData:
+    """A PNG's header, palette and inflated image data (``png_parse``)."""
+
+    width: int
+    height: int
+    depth: int
+    color_type: int
+    interlace: int
+    palette: Optional[np.ndarray]  # (n, 3) uint8, PLTE's entries
+    raw: bytes
+
+    @property
+    def channels(self) -> int:
+        return _PNG_CHANNELS[self.color_type]
+
+
+def png_parse(data: bytes, strict: bool = True) -> PngData:
+    """The chunks of a PNG to IEND (``strict``: every CRC, else libpng's rule),
+    its IDAT data inflated. Raises ImageFormatError on what is broken."""
+    chunks = _png_chunks(data, strict)
     ctype_, payload = next(chunks)
     if ctype_ != b"IHDR":
         raise ImageFormatError("broken PNG file: IHDR is not the first chunk")
     w, h, depth, ctype, interlace = _png_header(payload)
-    if interlace:
-        raise ImageFormatError("Adam7-interlaced PNG is not supported by the port's decoder")
     palette, idat = None, []
     for name, payload in chunks:
         if name == b"PLTE":
+            if len(payload) % 3 or len(payload) > 768:
+                if ctype == 3:
+                    raise ImageFormatError("broken PNG file: PLTE of the wrong length")
+                continue  # libpng ignores a broken suggested palette
             palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
         elif name == b"IDAT":
             idat.append(payload)
-    channels = _PNG_CHANNELS[ctype]
-    bits = channels * depth
-    bpp, stride = max(1, bits // 8), (w * bits + 7) // 8
+    if ctype == 3 and palette is None:
+        raise ImageFormatError("broken PNG file: palette image without PLTE")
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ImageFormatError(f"broken PNG file: {e}") from None
-    if len(raw) < h * (stride + 1):
+    return PngData(w, h, depth, ctype, interlace, palette, raw)
+
+
+def png_passes(width: int, height: int, interlace: int) -> List[Tuple[int, int, int, int, int, int]]:
+    """(x0, y0, dx, dy, pass width, pass height) of each non-empty pass: one for a
+    plain image, up to seven for Adam7."""
+    if not interlace:
+        return [(0, 0, 1, 1, width, height)]
+    out = []
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
+
+
+def png_samples(png: PngData, native: Optional[bool] = None) -> np.ndarray:
+    """(H, W, channels) uint8 samples: each pass unfiltered (``unfilter``) and
+    unpacked, 16-bit to its high byte (libpng's strip_16), gray below 8 bits
+    scaled to 8 (expand), palette indices as they are; passes scattered."""
+    w, h, depth, channels = png.width, png.height, png.depth, png.channels
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    passes = png_passes(w, h, png.interlace)
+    need = sum(ph * ((pw * bits + 7) // 8 + 1) for _, _, _, _, pw, ph in passes)
+    if len(png.raw) < need:
         raise ImageFormatError("truncated PNG image data")
-    rows = unfilter(np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(h, stride + 1), bpp)
-    if depth == 16:  # libpng's png_set_strip_16: the high byte
-        samples = rows.reshape(h, w * channels, 2)[:, :, 0]
-    elif depth < 8:
-        per_byte = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
-            h, stride * per_byte)[:, :w]
-        if ctype == 0:  # gray scaled to 8 bits: 1 -> 255, 2 bits x 85, 4 bits x 17
-            samples = samples * np.uint8(255 // ((1 << depth) - 1))
-    else:
-        samples = rows
-    samples = samples.reshape(h, w, channels)
-    if ctype == 3:
-        if palette is None:
-            raise ImageFormatError("broken PNG file: palette image without PLTE")
+    raw = np.frombuffer(png.raw, np.uint8, need)
+    out = np.empty((h, w, channels), np.uint8)
+    at = 0
+    for x0, y0, dx, dy, pw, ph in passes:
+        stride = (pw * bits + 7) // 8
+        rows = unfilter(raw[at: at + ph * (stride + 1)].reshape(ph, stride + 1), bpp, native)
+        at += ph * (stride + 1)
+        if depth == 16:  # libpng's png_set_strip_16: the high byte
+            samples = rows.reshape(ph, pw * channels, 2)[:, :, 0]
+        elif depth < 8:
+            per_byte = 8 // depth
+            shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+            samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
+                ph, stride * per_byte)[:, :pw]
+            if png.color_type == 0:  # gray scaled to 8 bits: 1 -> 255, 2 bits x 85, 4 bits x 17
+                samples = samples * np.uint8(255 // ((1 << depth) - 1))
+        else:
+            samples = rows
+        out[y0::dy, x0::dx] = samples.reshape(ph, pw, channels)
+    return out
+
+
+def png_rgb(png: PngData, samples: np.ndarray, strict: bool = True) -> np.ndarray:
+    """Samples -> (H, W, 3) uint8 RGB: palette looked up, gray repeated, alpha
+    dropped. A palette index past PLTE raises (``strict``) or reads as black,
+    as libpng's zero-filled 256-entry palette gives it."""
+    if png.color_type == 3:
         idx = samples[:, :, 0]
+        palette = png.palette
         if int(idx.max()) >= len(palette):
-            raise ImageFormatError("broken PNG file: palette index out of range")
-        rgb = palette[idx]
-    elif ctype in (0, 4):  # gray (+ alpha): alpha dropped, gray repeated
-        rgb = np.repeat(samples[:, :, :1], 3, axis=2)
-    else:  # RGB (+ alpha): alpha dropped, as cv2.IMREAD_COLOR does
-        rgb = samples[:, :, :3]
-    return np.ascontiguousarray(rgb[:, :, ::-1])
+            if strict:
+                raise ImageFormatError("broken PNG file: palette index out of range")
+            palette = np.concatenate([palette, np.zeros((256 - len(palette), 3), np.uint8)])
+        return palette[idx]
+    if png.color_type in (0, 4):  # gray (+ alpha): alpha dropped, gray repeated
+        return np.repeat(samples[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(samples[:, :, :3])  # RGB (+ alpha): alpha dropped
+
+
+def _png_read(data: bytes) -> np.ndarray:
+    png = png_parse(data)
+    return np.ascontiguousarray(png_rgb(png, png_samples(png))[:, :, ::-1])
 
 
 def _bmp_read(data: bytes) -> np.ndarray:
@@ -297,10 +373,10 @@ def _bmp_read(data: bytes) -> np.ndarray:
 
 def imread(path) -> np.ndarray:
     """The image at ``path`` as an (H, W, 3) uint8 BGR array, as ``cv2.imread``
-    reads it: PNG, uncompressed BMP and sequential JPEG. Raises
-    FileNotFoundError for a missing file, ImageFormatError for a corrupt one or
-    another format, and NotImplementedError for progressive or arithmetic-coded
-    JPEG."""
+    reads it: PNG (Adam7 too), uncompressed BMP and sequential or progressive
+    JPEG. Raises FileNotFoundError for a missing file, ImageFormatError for a
+    corrupt one or another format, and NotImplementedError for the JPEG kinds
+    ``data/jpeg.py`` does not read (arithmetic-coded, lossless, ...)."""
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(f"image not found {path}")
@@ -342,20 +418,25 @@ def png_filter(rows: np.ndarray, bpp: int, filter_type: int) -> np.ndarray:
     return out
 
 
-def imwrite_png(path, img: np.ndarray, filter_type: int = 0, level: int = 1) -> None:
+def imwrite_png(path, img: np.ndarray, filter_type: int = 0, level: int = 1,
+                interlace: bool = False) -> None:
     """Write an (H, W, 3) BGR or (H, W) gray uint8 array as an 8-bit PNG, every
-    row with ``filter_type`` (0-4), compressed at zlib ``level``."""
+    row with ``filter_type`` (0-4), compressed at zlib ``level``; ``interlace``:
+    Adam7, each pass filtered on its own."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
         raise ValueError(f"imwrite_png takes (H, W, 3) or (H, W) uint8, got {img.dtype} "
                          f"{img.shape}")
     h, w = img.shape[:2]
     color = img.ndim == 3
-    rows = (img[:, :, ::-1] if color else img).reshape(h, -1)
-    filtered = png_filter(rows, 3 if color else 1, filter_type)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2 if color else 0, 0, 0, 0)
+    pixels = img[:, :, ::-1] if color else img
+    stream = b"".join(
+        png_filter(np.ascontiguousarray(pixels[y0::dy, x0::dx]).reshape(ph, -1),
+                   3 if color else 1, filter_type).tobytes()
+        for x0, y0, dx, dy, _, ph in png_passes(w, h, int(interlace)))
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if color else 0, 0, 0, int(interlace))
     Path(path).write_bytes(PNG_SIGNATURE + _png_chunk(b"IHDR", header)
-                           + _png_chunk(b"IDAT", zlib.compress(filtered.tobytes(), level))
+                           + _png_chunk(b"IDAT", zlib.compress(stream, level))
                            + _png_chunk(b"IEND", b""))
 
 

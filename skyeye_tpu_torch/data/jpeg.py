@@ -4,10 +4,13 @@ The port's stand-in for the codec that OpenCV gives JAX's data path. OpenCV
 reads and writes JPEG through libjpeg-turbo, whose default paths are integer
 arithmetic that can be repeated exactly:
 
-  decode  baseline and extended-sequential Huffman, 8-bit, 1 or 3 components,
-          any integer sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), restart
-          intervals, fill bytes, APPn/COM segments, sizes that are not a
-          multiple of the MCU; ``jidctint.c``'s ISLOW inverse DCT with its
+  decode  baseline, extended-sequential and progressive Huffman, 8-bit, 1 or
+          3 components, any integer sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...),
+          restart intervals, fill bytes, APPn/COM segments, sizes that are not
+          a multiple of the MCU; progressive scans (``jdphuff.c``): spectral
+          selection, successive approximation (DC first and refine, AC first
+          and refine with EOB runs), into the same coefficient arrays;
+          ``jidctint.c``'s ISLOW inverse DCT with its
           descale rounding and range limit, ``jdsample.c``'s fancy (triangle)
           upsampling (h2v1, h2v2 and h1v2; box replication where libjpeg takes
           it), ``jdcolor.c``'s fixed-point YCbCr->RGB tables, written as BGR;
@@ -24,9 +27,19 @@ arithmetic that can be repeated exactly:
 ``decode``/``encode`` run a host C version (``csrc/jpeg.cu``, built like the
 kernels) where CUDA is available, as on the card's machine, and the numpy
 versions here (``decode_plain``/``encode_plain``) elsewhere; both give the
-same pixels and the same bytes. Progressive, lossless, hierarchical and
-arithmetic-coded files raise NotImplementedError; a truncated or corrupt file
-raises ``ImageFormatError``.
+same pixels and the same bytes. Lossless, hierarchical, arithmetic-coded and
+12-bit files raise NotImplementedError, and so does a progressive file whose
+scans leave one of the first ten coefficients unfinished (libjpeg smooths
+such blocks, ``jdcoefct.c``, which is not ported); a truncated or corrupt
+file raises ``ImageFormatError``.
+
+``lenient=True`` (``decode_coefficients``, ``decode_rgb``) reads damaged data
+as libjpeg does without an error: past the end of the data (or at a marker
+inside a scan) the MCU in progress is decoded from zero bits and the rest of
+the restart interval is skipped (zeros in a sequential file, the coefficients
+left as they are in a progressive one); a Huffman code that matches nothing
+takes 17 bits and decodes as symbol 0. JAX's native host prep reads JPEG
+through libjpeg this way (``data/native.py``).
 """
 from __future__ import annotations
 
@@ -41,8 +54,10 @@ import torch
 
 from .imageio import ImageFormatError
 
-PROGRESSIVE_NOT_PORTED = ("progressive, lossless, hierarchical and arithmetic-coded JPEG "
-                          "are not in the port yet (ROADMAP.md, Queue 1 item 13)")
+KINDS_NOT_PORTED = ("lossless, hierarchical, arithmetic-coded and 12-bit JPEG, and "
+                    "libjpeg's block smoothing of unfinished progressive files, "
+                    "are not in the port yet (ROADMAP.md, Queue 1 item 13)")
+SMOOTHED_COEFS = 10  # libjpeg-turbo's SAVED_COEFS: zigzag 0..9 decide block smoothing
 
 
 def _natural_order() -> np.ndarray:
@@ -117,6 +132,7 @@ class Frame:
     adobe_transform: Optional[int] = None
     jfif: bool = False
     orientation: int = 1  # EXIF
+    progressive: bool = False
 
     @property
     def hmax(self) -> int:
@@ -181,13 +197,13 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 
 
 def _sof(payload: bytes, marker: int) -> Frame:
-    if marker not in (0xC0, 0xC1):
-        raise NotImplementedError(f"JPEG SOF{marker - 0xC0}: {PROGRESSIVE_NOT_PORTED}")
+    if marker not in (0xC0, 0xC1, 0xC2):
+        raise NotImplementedError(f"JPEG SOF{marker - 0xC0}: {KINDS_NOT_PORTED}")
     if len(payload) < 6:
         raise ImageFormatError("truncated JPEG frame header")
     precision, h, w, nc = struct.unpack(">BHHB", payload[:6])
     if precision != 8:
-        raise NotImplementedError(f"{precision}-bit JPEG: {PROGRESSIVE_NOT_PORTED}")
+        raise NotImplementedError(f"{precision}-bit JPEG: {KINDS_NOT_PORTED}")
     if h == 0 or w == 0:
         raise ImageFormatError(f"JPEG frame of {w}x{h} (a DNL height is not read)")
     if nc not in (1, 3) or len(payload) < 6 + 3 * nc:
@@ -198,7 +214,7 @@ def _sof(payload: bytes, marker: int) -> Frame:
         if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4) or tq > 3:
             raise ImageFormatError("broken JPEG frame header")
         comps.append(Component(ident, hv >> 4, hv & 15, tq))
-    frame = Frame(w, h, comps)
+    frame = Frame(w, h, comps, progressive=marker == 0xC2)
     for c in comps:
         if frame.hmax % c.h or frame.vmax % c.v:
             raise ImageFormatError(f"JPEG sampling {c.h}x{c.v} of {frame.hmax}x{frame.vmax}")
@@ -216,7 +232,7 @@ def read_header(data: bytes) -> Frame:
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             frame = _sof(payload, marker)
         elif marker == 0xCC:
-            raise NotImplementedError(f"JPEG DAC: {PROGRESSIVE_NOT_PORTED}")
+            raise NotImplementedError(f"JPEG DAC: {KINDS_NOT_PORTED}")
         elif marker == 0xE0 and payload[:5] == b"JFIF\0":
             app["jfif"] = True
         elif marker == 0xE1 and "orientation" not in app and payload[:6] == b"Exif\0\0":
@@ -258,6 +274,8 @@ def _parse_dht(payload: bytes, tables: Dict[Tuple[int, int], List[int]]) -> None
         n = sum(counts)
         if len(counts) < 16 or pos + 17 + n > len(payload) or tc_th >> 4 > 1 or tc_th & 15 > 3:
             raise ImageFormatError("broken JPEG Huffman table")
+        if tc_th >> 4 == 0 and max(payload[pos + 17: pos + 17 + n], default=0) > 15:
+            raise ImageFormatError("broken JPEG Huffman table: a DC category above 15")
         tables[(tc_th >> 4, tc_th & 15)] = _huffman_lut(payload[pos + 1: pos + 17 + n])
         pos += 17 + n
 
@@ -278,16 +296,21 @@ def _parse_dqt(payload: bytes, tables: Dict[int, np.ndarray]) -> None:
 
 # -- entropy decoding -----------------------------------------------------------------
 
-def _entropy_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
+def _entropy_segments(data: bytes, pos: int, lenient: bool = False) -> Tuple[List[bytes], int]:
     """The scan's entropy-coded data from pos, split at its restart markers, each
-    piece unstuffed; and the position of the marker that ends the scan."""
+    piece unstuffed; and the position of the marker that ends the scan. With
+    ``lenient`` the end of the data ends the scan (libjpeg reads an EOI there)."""
     arr = np.frombuffer(data, np.uint8)
     ffs = np.flatnonzero(arr[pos:] == 0xFF) + pos
     segments, start, piece = [], pos, bytearray()
     i = 0
     while True:
         if i >= len(ffs) or ffs[i] + 1 >= len(data):
-            raise ImageFormatError("truncated JPEG file: the scan runs to the end of the data")
+            if not lenient:
+                raise ImageFormatError("truncated JPEG file: the scan runs to the end of the data")
+            piece += data[start: int(ffs[i]) if i < len(ffs) else len(data)]
+            segments.append(bytes(piece))
+            return segments, len(data)
         at = int(ffs[i])
         nxt = data[at + 1]
         if nxt == 0x00:  # a stuffed 0xFF
@@ -316,7 +339,8 @@ def _entropy_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
 
 class _Bits:
     """Bit windows over one entropy segment; zeros past its end, as libjpeg
-    inserts at a marker. ``limit``: a block that ends past it ran out of data."""
+    inserts at a marker. ``limit``: a block that ends past it ran out of data
+    (the strict decoder raises there); ``real``: the segment's own bits."""
 
     PAD = 512  # zero bytes after the segment: more than one block can read
 
@@ -324,7 +348,8 @@ class _Bits:
         b = np.frombuffer(seg + b"\0" * self.PAD, np.uint8).astype(np.int64)
         self.words = ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
         self.p = 0
-        self.limit = 8 * (len(seg) + 4)
+        self.real = 8 * len(seg)
+        self.limit = self.real + 32
 
     def peek16(self) -> int:
         p = self.p
@@ -335,31 +360,77 @@ class _Bits:
         self.p = p + s
         return (self.words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
 
+    def overran(self, lenient: bool) -> bool:
+        """After a block: whether it read past the segment's data. The strict
+        decoder raises; the lenient one (libjpeg) reads on in zeros, so the
+        position goes back to the end of the data, where every bit is 0."""
+        if self.p <= self.real:
+            return False
+        if not lenient:
+            if self.p > self.limit:
+                raise ImageFormatError("corrupt JPEG data: the data ran out inside a block")
+            return False
+        self.p = self.real
+        return True
+
 
 def _extend(v: int, s: int) -> int:
     return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
 
 
-def _decode_scan(frame: Frame, payload: bytes, data: bytes, pos: int, restart: int,
-                 huff: Dict[Tuple[int, int], List[int]]) -> int:
+def _symbol(lut: List[int], bits: _Bits, lenient: bool) -> int:
+    """One Huffman symbol; a code that matches nothing raises, or (lenient, as
+    ``jpeg_huff_decode``) takes 17 bits and reads as 0."""
+    e = lut[bits.peek16()]
+    if e:
+        bits.p += e >> 8
+        return e & 255
+    if not lenient:
+        raise ImageFormatError("corrupt JPEG data: bad Huffman code")
+    bits.p += 17
+    return 0
+
+
+def _scan_header(frame: Frame, payload: bytes, huff):
+    """(components with their DC and AC tables, Ss, Se, Ah, Al) of an SOS,
+    checked as libjpeg checks it (``jdphuff.c`` for a progressive frame)."""
     ns = payload[0] if payload else 0
-    if ns < 1 or len(payload) < 4 + 2 * ns:
+    if ns < 1 or ns > 4 or len(payload) < 4 + 2 * ns:
         raise ImageFormatError("broken JPEG scan header")
+    ss, se, ahal = payload[1 + 2 * ns: 4 + 2 * ns]
+    ah, al = ahal >> 4, ahal & 15
     ids = {c.ident: c for c in frame.components}
+    if frame.progressive:
+        bad = (se != 0) if ss == 0 else (ss > se or se > 63 or ns != 1)
+        if bad or (ah and al != ah - 1) or al > 13:
+            raise ImageFormatError(f"broken JPEG progression: Ss {ss}, Se {se}, Ah {ah}, Al {al}")
+    else:  # libjpeg warns and reads a sequential scan whatever its Ss, Se, Ah, Al
+        ss, se, ah, al = 0, 63, 0, 0
+    need_dc = ss == 0 and ah == 0
+    need_ac = ss > 0 or not frame.progressive
     scan = []
     for i in range(ns):
         ident, tables = payload[1 + 2 * i], payload[2 + 2 * i]
         if ident not in ids:
             raise ImageFormatError(f"JPEG scan names component {ident}, not in the frame")
         td, ta = tables >> 4, tables & 15
-        if (0, td) not in huff or (1, ta) not in huff:
+        if (need_dc and (0, td) not in huff) or (need_ac and (1, ta) not in huff):
             raise ImageFormatError("JPEG scan uses a Huffman table it did not define")
-        scan.append((ids[ident], huff[(0, td)], huff[(1, ta)]))
-    ss, se, ahal = payload[1 + 2 * ns: 4 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise NotImplementedError(f"JPEG scan of spectral range {ss}-{se}: "
-                                  f"{PROGRESSIVE_NOT_PORTED}")
-    segments, end = _entropy_segments(data, pos)
+        scan.append((ids[ident], huff.get((0, td)), huff.get((1, ta))))
+    return scan, ss, se, ah, al
+
+
+def _decode_scan(frame: Frame, payload: bytes, data: bytes, pos: int, restart: int,
+                 huff: Dict[Tuple[int, int], List[int]], lenient: bool = False,
+                 coef_bits: Optional[Dict[int, List[int]]] = None) -> int:
+    scan, ss, se, ah, al = _scan_header(frame, payload, huff)
+    ns = len(scan)
+    if frame.progressive:  # libjpeg's progression status, read when smoothing is decided
+        for comp, _, _ in scan:
+            bits_of = coef_bits[id(comp)]
+            for k in range(ss, se + 1):
+                bits_of[k] = al
+    segments, end = _entropy_segments(data, pos, lenient)
 
     hmax, vmax = frame.hmax, frame.vmax
     if ns == 1:  # non-interleaved: one block an MCU, over the component's own blocks
@@ -377,62 +448,188 @@ def _decode_scan(frame: Frame, payload: bytes, data: bytes, pos: int, restart: i
     widths = {id(c): c.coef.shape[1] for c, _, _ in scan}
     n_mcu = mcux * mcuy
     per_interval = restart or n_mcu
-    if len(segments) < -(-n_mcu // per_interval):
+    n_intervals = -(-n_mcu // per_interval)
+    if len(segments) < n_intervals and not lenient:
         raise ImageFormatError("truncated JPEG file: fewer restart intervals than MCUs need")
     natural = NATURAL_ORDER.tolist()
-    for m0 in range(0, n_mcu, per_interval):
-        bits = _Bits(segments[m0 // per_interval])
+    if not frame.progressive:
+        kind = "sequential"
+    elif ss == 0:
+        kind = "dc_refine" if ah else "dc_first"
+    else:
+        kind = "ac_refine" if ah else "ac_first"
+    p1, m1 = 1 << al, -(1 << al)
+    insufficient = False  # libjpeg's flag: the data ran out in this interval
+    for t in range(n_intervals):
+        m0 = t * per_interval
+        if 0 < t < len(segments):  # the restart marker was there: the flag clears
+            insufficient = False
+        bits = _Bits(segments[t] if t < len(segments) else b"")
         pred = [0] * ns
+        eobrun = 0
         for m in range(m0, min(m0 + per_interval, n_mcu)):
+            if insufficient:
+                continue
             my, mx = divmod(m, mcux)
             for k, y, x in flat:
                 comp, dc_lut, ac_lut = scan[k]
                 h, v = (1, 1) if ns == 1 else (comp.h, comp.v)
                 base = ((my * v + y) * widths[id(comp)] + mx * h + x) * 64
                 out = coefs[id(comp)]
-                e = dc_lut[bits.peek16()]
-                if not e:
-                    raise ImageFormatError("corrupt JPEG data: bad Huffman code")
-                bits.p += e >> 8
-                s = e & 255
-                d = _extend(bits.get(s), s) if s else 0
-                pred[k] += d
-                out[base] = pred[k]
-                j = 1
-                while j < 64:
-                    e = ac_lut[bits.peek16()]
-                    if not e:
-                        raise ImageFormatError("corrupt JPEG data: bad Huffman code")
-                    bits.p += e >> 8
-                    rs = e & 255
-                    r, s = rs >> 4, rs & 15
-                    if s:
-                        j += r
-                        out[base + natural[j]] = _extend(bits.get(s), s)
-                        j += 1
-                    elif r == 15:
-                        j += 16
+                if kind == "sequential":  # the hot loop: the bit reader inlined
+                    s = _symbol(dc_lut, bits, lenient)
+                    pred[k] += _extend(bits.get(s), s) if s else 0
+                    out[base] = pred[k]
+                    words, p = bits.words, bits.p
+                    j = 1
+                    while j < 64:
+                        e = ac_lut[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                        if e:
+                            p += e >> 8
+                            s = e & 15
+                            r = (e & 255) >> 4
+                        else:
+                            bits.p = p
+                            rs = _symbol(ac_lut, bits, lenient)
+                            p = bits.p
+                            r, s = rs >> 4, rs & 15
+                        if s:
+                            j += r
+                            v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
+                            p += s
+                            out[base + natural[j]] = v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+                            j += 1
+                        elif r == 15:
+                            j += 16
+                        else:
+                            break
+                    bits.p = p
+                elif kind == "dc_first":
+                    s = _symbol(dc_lut, bits, lenient)
+                    pred[k] += _extend(bits.get(s), s) if s else 0
+                    out[base] = pred[k] * p1
+                elif kind == "dc_refine":
+                    if bits.get(1):
+                        out[base] |= p1
+                elif kind == "ac_first":
+                    if eobrun:
+                        eobrun -= 1
                     else:
-                        break
-                if bits.p > bits.limit:
-                    raise ImageFormatError("corrupt JPEG data: the data ran out inside a block")
+                        words, p = bits.words, bits.p
+                        j = ss
+                        while j <= se:
+                            e = ac_lut[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                            if e:
+                                p += e >> 8
+                                rs = e & 255
+                            else:
+                                bits.p = p
+                                rs = _symbol(ac_lut, bits, lenient)
+                                p = bits.p
+                            r, s = rs >> 4, rs & 15
+                            if s:
+                                j += r
+                                v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
+                                p += s
+                                out[base + natural[j]] = (v - (1 << s) + 1
+                                                          if v < (1 << (s - 1)) else v) * p1
+                            elif r == 15:
+                                j += 15
+                            else:
+                                if r:
+                                    eobrun = (words[p >> 3] >> (32 - r - (p & 7))) & ((1 << r) - 1)
+                                    p += r
+                                eobrun += (1 << r) - 1
+                                break
+                            j += 1
+                        bits.p = p
+                else:
+                    eobrun = _ac_refine(out, base, bits, ac_lut, ss, se, p1, m1, eobrun,
+                                        natural, lenient)
+                if bits.overran(lenient):
+                    insufficient = True
     for c, _, _ in scan:
         c.coef = np.array(coefs[id(c)], np.int64).reshape(c.coef.shape)
     return end
 
 
-def decode_coefficients(data: bytes) -> Tuple[Frame, Dict[int, np.ndarray]]:
-    """Parse a sequential Huffman JPEG: its frame (each component's quantised
-    coefficients in ``coef``) and its quantisation tables."""
+def _ac_refine(out: List[int], base: int, bits: _Bits, lut: List[int], ss: int, se: int,
+               p1: int, m1: int, eobrun: int, natural: List[int], lenient: bool) -> int:
+    """``decode_mcu_AC_refine`` on one block; returns the EOB run left."""
+
+    words = bits.words
+
+    def correct(pos: int) -> None:  # a correction bit for an already nonzero coefficient
+        c = out[pos]
+        p = bits.p
+        bits.p = p + 1
+        if (words[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+            out[pos] = c + (p1 if c >= 0 else m1)
+
+    j = ss
+    if not eobrun:
+        while j <= se:
+            rs = _symbol(lut, bits, lenient)
+            r, s = rs >> 4, rs & 15
+            if s:  # a newly nonzero coefficient (of size 1; libjpeg warns otherwise)
+                s = p1 if bits.get(1) else m1
+            elif r != 15:
+                eobrun = (1 << r) + (bits.get(r) if r else 0)
+                break
+            while j <= se:  # past nonzero coefficients (corrected) and r zero ones
+                pos = base + natural[j]
+                if out[pos]:
+                    correct(pos)
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                j += 1
+            if s:
+                out[base + natural[j]] = s
+            j += 1
+    if eobrun:
+        for jj in range(j, se + 1):
+            pos = base + natural[jj]
+            if out[pos]:
+                correct(pos)
+        eobrun -= 1
+    return eobrun
+
+
+def _smoothing_would_apply(frame: Frame, quant: Dict[int, np.ndarray],
+                           coef_bits: Dict[int, List[int]]) -> bool:
+    """libjpeg's ``smoothing_ok``: a progressive frame whose DC is known for every
+    component and one of whose first ten coefficients is unfinished somewhere."""
+    useful = False
+    for c in frame.components:
+        q = quant.get(c.tq)
+        if q is None or not all(q[NATURAL_ORDER[:SMOOTHED_COEFS]]):
+            return False
+        bits_of = coef_bits[id(c)]
+        if bits_of[0] < 0:
+            return False
+        useful = useful or any(b != 0 for b in bits_of[1:SMOOTHED_COEFS])
+    return useful
+
+
+def decode_coefficients(data: bytes, lenient: bool = False
+                        ) -> Tuple[Frame, Dict[int, np.ndarray]]:
+    """Parse a Huffman JPEG, sequential or progressive: its frame (each
+    component's quantised coefficients in ``coef``) and its quantisation
+    tables. ``lenient``: damaged data read as libjpeg reads it (module doc)."""
     frame = read_header(data)
     hmax, vmax = frame.hmax, frame.vmax
     mcux, mcuy = -(-frame.width // (8 * hmax)), -(-frame.height // (8 * vmax))
     for c in frame.components:
         c.coef = np.zeros((mcuy * c.v, mcux * c.h, 64), np.int64)
+    coef_bits = {id(c): [-1] * 64 for c in frame.components}
     quant: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], List[int]] = {}
     pos, restart, scans = 2, 0, 0
     while True:
+        if lenient and pos >= len(data):
+            break  # libjpeg reads an EOI at the end of the data
         marker, payload, pos = _segment(data, pos)
         if marker == 0xC4:
             _parse_dht(payload, huff)
@@ -443,7 +640,7 @@ def decode_coefficients(data: bytes) -> Tuple[Frame, Dict[int, np.ndarray]]:
                 raise ImageFormatError("broken JPEG restart interval")
             (restart,) = struct.unpack(">H", payload[:2])
         elif marker == 0xDA:
-            pos = _decode_scan(frame, payload, data, pos, restart, huff)
+            pos = _decode_scan(frame, payload, data, pos, restart, huff, lenient, coef_bits)
             scans += 1
         elif marker == 0xD9:
             break
@@ -455,6 +652,9 @@ def decode_coefficients(data: bytes) -> Tuple[Frame, Dict[int, np.ndarray]]:
         if c.tq not in quant:
             raise ImageFormatError(f"JPEG component {c.ident} uses an undefined quantisation "
                                    "table")
+    if frame.progressive and _smoothing_would_apply(frame, quant, coef_bits):
+        raise NotImplementedError(f"progressive JPEG with unfinished coefficients: "
+                                  f"{KINDS_NOT_PORTED}")
     return frame, quant
 
 
@@ -836,7 +1036,7 @@ def _check_encode_input(img: np.ndarray) -> np.ndarray:
 
 # -- the host C version ------------------------------------------------------------
 
-_C_ERRORS = {1: "truncated JPEG file", 2: "corrupt JPEG data", 3: "unsupported JPEG file"}
+_C_ERRORS = {1: "truncated JPEG file", 2: "corrupt JPEG data"}
 
 
 @functools.cache
@@ -848,8 +1048,9 @@ def jpeg_library():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     built.lib.skyeye_jpeg_decode.argtypes = [ptr, i64, ptr, i32, i32]
     built.lib.skyeye_jpeg_decode.restype = i32
-    built.lib.skyeye_jpeg_encode.argtypes = [ptr, i32, i32, i32, i32, ptr, i64]
-    built.lib.skyeye_jpeg_encode.restype = i64
+    for name in ("skyeye_jpeg_encode", "skyeye_jpeg_encode_progressive"):
+        getattr(built.lib, name).argtypes = [ptr, i32, i32, i32, i32, ptr, i64]
+        getattr(built.lib, name).restype = i64
     return built
 
 
@@ -868,6 +1069,9 @@ def decode(data: bytes, native: Optional[bool] = None) -> np.ndarray:
         buf = np.frombuffer(data, np.uint8)
         rc = jpeg_library().lib.skyeye_jpeg_decode(buf.ctypes.data, len(data), out.ctypes.data,
                                                    frame.width, frame.height)
+        if rc == 3:  # the header read, so a progressive frame libjpeg would smooth
+            raise NotImplementedError(f"progressive JPEG with unfinished coefficients: "
+                                      f"{KINDS_NOT_PORTED}")
         if rc:
             raise ImageFormatError(_C_ERRORS.get(rc, f"JPEG decode failed ({rc})"))
     else:
@@ -881,14 +1085,28 @@ def encode(img: np.ndarray, quality: int = DEFAULT_QUALITY, native: Optional[boo
     img = _check_encode_input(img)
     if not _use_native(native):
         return encode_plain(img, quality)
+    return _encode_c(img, quality, "skyeye_jpeg_encode")
+
+
+def encode_progressive(img: np.ndarray, quality: int = DEFAULT_QUALITY) -> bytes:
+    """``encode``'s coefficients written progressive: SOF2 and
+    ``jpeg_simple_progression``'s scans (DC and AC first with successive
+    approximation, then their refinements; ten for colour, six for gray) with
+    the standard Huffman tables, each block closing its own EOB run. It decodes
+    to the pixels of ``encode``'s file. Host C only (built at first use): a
+    writer of test frames, which the port's loaders never call."""
+    return _encode_c(_check_encode_input(img), quality, "skyeye_jpeg_encode_progressive")
+
+
+def _encode_c(img: np.ndarray, quality: int, entry: str) -> bytes:
     h, w = img.shape[:2]
     channels = 1 if img.ndim == 2 else 3
     # at most 27 bits a coefficient (16 of code, 11 of value), doubled by stuffing
     capacity = (-(-h // 16) * 16) * (-(-w // 16) * 16) * channels * 7 + 4096
     out = np.empty(capacity, np.uint8)
-    n = jpeg_library().lib.skyeye_jpeg_encode(img.ctypes.data, h, w, channels,
-                                              min(max(int(quality), 1), 100),
-                                              out.ctypes.data, capacity)
+    n = getattr(jpeg_library().lib, entry)(img.ctypes.data, h, w, channels,
+                                           min(max(int(quality), 1), 100), out.ctypes.data,
+                                           capacity)
     if n <= 0:
         raise RuntimeError(f"JPEG encode failed ({n})")
     return out[:n].tobytes()

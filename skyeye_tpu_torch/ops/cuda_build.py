@@ -2,8 +2,9 @@
 
 The library has a plain C interface (no PyTorch headers), so a build takes
 seconds. It goes into ``skyeye_tpu_torch/_build/`` at first use, named by a hash
-of its source and its own flags, so a stale library is never loaded and no
-source inherits a flag that another one needs. The build runs
+of its source, every local file it includes (``#include "..."``, followed
+through those files too) and its own flags, so a stale library is never
+loaded and no source inherits a flag that another one needs. The build runs
 under a time limit and raises on failure; nothing here falls back.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -18,7 +20,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -29,6 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 300
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 @dataclass
@@ -56,14 +59,36 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH, under $CUDA_HOME/bin or /usr/local/cuda/bin")
 
 
+def source_files(path: Path) -> List[Path]:
+    """``path`` and every local file it includes, directly or through another,
+    each once, in the order first reached."""
+    seen: List[Path] = []
+    todo = [path.resolve()]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        for name in _LOCAL_INCLUDE.findall(f.read_bytes()):
+            todo.append((f.parent / name.decode()).resolve())
+    return seen
+
+
+def library_key(path: Path, flags: Sequence[str]) -> str:
+    """``<stem>-<hash>``: the hash of the flags and of the bytes of the source
+    and of every local file it includes."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for f in source_files(path):
+        digest.update(f.read_bytes())
+    return f"{path.stem}-{digest.hexdigest()[:16]}"
+
+
 def load_library(source: str, extra_flags: Sequence[str] = ()) -> Built:
     """Build ``csrc/<source>`` with ``NVCC_FLAGS`` plus ``extra_flags`` (once per
-    hash of both and the source) and load it."""
+    hash of both, the source and what it includes) and load it."""
     path = CSRC_DIR / source
     flags = (*NVCC_FLAGS, *extra_flags)
-    digest = hashlib.sha256(" ".join(flags).encode())
-    digest.update(path.read_bytes())
-    key = f"{path.stem}-{digest.hexdigest()[:16]}"
+    key = library_key(path, flags)
     with _LOCKS_GUARD:
         lock = _LOCKS.setdefault(key, threading.Lock())
     with lock:

@@ -7,7 +7,11 @@ both packages must count as corrupt and drop: a truncated PNG, an image under
 find, keep and order the same files with the same labels and shapes, build the
 same rect batch shapes with and without ``shape_buckets``, give the same items
 (letterboxed images bit for bit) and the same ``BatchLoader`` batches as JAX's
-Python path (its native C++ decoder switched off in the test).
+Python path (both native paths switched off in the test). On a directory of
+JPEG (baseline, progressive, gray, truncated) and PNG (one Adam7) frames both
+loaders take their native path, and give the same batches bit for bit: whole,
+as two ranks' shares, and as the ``--device-aug`` training loader's first
+shuffled batch.
 """
 import json
 import logging
@@ -24,7 +28,8 @@ import skyeye_tpu.data.dataset as jax_dataset
 import skyeye_tpu.data.native as jax_native
 from skyeye_tpu.config import DataConfig as JaxDataConfig
 from skyeye_tpu_torch.config import _SCHEMA, DataConfig, _read_flat_yaml
-from skyeye_tpu_torch.data import dataset
+from skyeye_tpu_torch.data import dataset, imageio
+from skyeye_tpu_torch.data import native as port_native
 from skyeye_tpu_torch.data.prefetch import _PinnedRing
 from skyeye_tpu_torch.utils.general import check_dataset, increment_path
 
@@ -79,8 +84,9 @@ def data_root(tmp_path):
 
 @pytest.fixture
 def python_path(monkeypatch):
-    """JAX's BatchLoader on its Python path (the port does not have the native one)."""
+    """Both BatchLoaders on JAX's Python path (both native paths switched off)."""
     monkeypatch.setattr(jax_native, "native_available", lambda: False)
+    monkeypatch.setattr(port_native, "ENABLED", False)
 
 
 def _same_dataset(ours, theirs):
@@ -174,7 +180,7 @@ def test_batch_loader_matches_jax_python_path(data_root, python_path, rect):
               workers=3, shuffle=False, shape_buckets=8)
     loader, _ = dataset.create_dataloader(split, **kw)
     jloader, _ = jax_dataset.create_dataloader(split, **kw)
-    assert not jloader._use_native
+    assert not jloader._use_native and not loader._use_native
     ours, theirs = list(loader), list(jloader)
     assert len(ours) == len(theirs) == len(loader) == 3
     for a, b in zip(ours, theirs):
@@ -202,6 +208,79 @@ def test_infinite_loader_matches_jax_across_passes(data_root, python_path):
         assert a.keys() == b.keys()
         for key in a:
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+NATIVE_SHAPES = [(120, 200), (150, 200), (200, 150), (160, 160), (90, 240), (77, 131),
+                 (140, 190)]
+
+
+@pytest.fixture
+def native_root(tmp_path):
+    """images/train under tmp_path: the kinds JAX's loader sends to its native
+    library (baseline 4:2:0 and progressive JPEG, a gray JPEG, a truncated JPEG
+    that PIL's ``verify()`` lets through, PNG, an Adam7 PNG), with labels."""
+    rng = np.random.RandomState(4)
+    img_dir, lbl_dir = tmp_path / "images" / "train", tmp_path / "labels" / "train"
+    img_dir.mkdir(parents=True)
+    lbl_dir.mkdir(parents=True)
+    for i, (h, w) in enumerate(NATIVE_SHAPES):
+        im = _frame(rng, h, w) + rng.randint(0, 9, (h, w, 3)).astype(np.uint8)
+        path = img_dir / f"im{i:02d}.{'png' if i in (3, 6) else 'jpg'}"
+        if i == 1:
+            cv2.imwrite(str(path), im, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        elif i == 2:
+            cv2.imwrite(str(path), im[:, :, 0])
+        elif i == 5:
+            data = cv2.imencode(".jpg", im)[1].tobytes()
+            path.write_bytes(data[: len(data) * 2 // 3])
+        elif i == 6:
+            imageio.imwrite_png(path, im, 4, interlace=True)
+        else:
+            cv2.imwrite(str(path), im)
+        rows = _labels(rng, 1 + i % 3)
+        (lbl_dir / f"im{i:02d}.txt").write_text(
+            "\n".join(" ".join(f"{v:.6f}" for v in r) for r in rows) + "\n")
+    return tmp_path / "images" / "train"
+
+
+def _hold_batches(got, want):
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert a.keys() == b.keys()
+        for key in a:
+            assert a[key].shape == b[key].shape and a[key].dtype == b[key].dtype, key
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_batch_loader_matches_jax_native_path(native_root, world):
+    """JAX's square eval loader on its C++ library; the port's on
+    ``native.prep_batch``: the same batches, whole or as ranks' shares
+    (concatenated), the short last batch wrapped around."""
+    kw = dict(img_size=128, batch_size=4, stride=32, workers=2, shuffle=False)
+    jloader, _ = jax_dataset.create_dataloader(native_root, **kw)
+    assert jloader._use_native
+    want = list(jloader)
+    shares = []
+    for rank in range(world):
+        loader, _ = dataset.create_dataloader(native_root, rank=rank, world=world, **kw)
+        assert loader._use_native
+        shares.append(list(loader))
+    got = [{key: (shares[0][b][key] if key == "n_valid" else
+                  np.concatenate([s[b][key] for s in shares])) for key in shares[0][b]}
+           for b in range(len(shares[0]))]
+    _hold_batches(got, want)
+
+
+def test_device_aug_loader_first_batch_matches_jax_native_path(native_root):
+    """The ``--device-aug`` training loader (``augment=False``, shuffled from the
+    seed, as both ``cli.train`` build it): its first batch."""
+    kw = dict(img_size=160, batch_size=4, stride=32, augment=False, workers=2, max_labels=20,
+              cache_images=False, seed=3, shuffle=True)
+    jloader, _ = jax_dataset.create_dataloader(native_root, **kw)
+    loader, _ = dataset.create_dataloader(native_root, **kw)
+    assert jloader._use_native and loader._use_native
+    _hold_batches([next(iter(loader))], [next(iter(jloader))])
 
 
 def test_load_dataset_and_a_loader_error_reach_the_caller(data_root):

@@ -16,9 +16,11 @@ PNG (cv2-written, odd sizes). Both packages' ``cli.detect.run`` run with
   rule), taken to whole 16x16 JPEG MCUs and one MCU around them (a pixel that
   differs changes its MCU's decode, and fancy upsampling reads the next MCU's
   chroma).
-``predict_files`` (JAX's without its native library, the path the port
-takes), ``Results.pandas``, ``render``, ``save`` and ``crop`` are held against
-JAX's on the same files at the same tolerances.
+``predict_files`` on both Python paths (native prep switched off on both
+sides), ``Results.pandas``, ``render``, ``save`` and ``crop`` are held against
+JAX's on the same files at the same tolerances; and ``predict_files`` on both
+native paths (host prep and 4x4 pack, the packed-stem model; JAX's also packs
+and merges stage 1) at the same tolerances.
 """
 import logging
 from pathlib import Path
@@ -33,6 +35,7 @@ from flax import traverse_util
 
 import skyeye_tpu.data.native as jax_native
 import skyeye_tpu.models.detector as jdet
+import skyeye_tpu_torch.data.native as port_native
 from skyeye_tpu.api import SkyEyeDetector as JaxDetector
 from skyeye_tpu.cli import detect as jax_detect
 from skyeye_tpu.cli.export import export_torch
@@ -246,13 +249,34 @@ def results(setup):
     paths = [str(p) for p in sorted(setup["src"].iterdir())]
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_native, "native_available", lambda: False)
+    mp.setattr(port_native, "ENABLED", False)
     try:
         jax_res = JaxDetector(weights=setup["weights"], img_size=IMG).predict_files(paths)
+        port_res = SkyEyeDetector(weights=setup["weights"], img_size=IMG,
+                                  device="cpu").predict_files(paths)
     finally:
         mp.undo()
-    port_res = SkyEyeDetector(weights=setup["weights"], img_size=IMG,
-                              device="cpu").predict_files(paths)
     return jax_res, port_res
+
+
+def test_predict_files_on_both_native_paths_matches_jax(setup):
+    """JAX's native path (C++ prep, the canonical packed executable) and the
+    port's (``native.prep_batch_s2d4``, the packed-stem model): the same
+    detections, classes equal, boxes and scores within 1e-4 relative; no
+    image is kept, and ``render`` reads them lazily."""
+    paths = [str(p) for p in sorted(setup["src"].iterdir())] + [str(setup["root"] / "gone.jpg")]
+    assert jax_native.native_available()
+    want = JaxDetector(weights=setup["weights"], img_size=IMG).predict_files(paths)
+    got = SkyEyeDetector(weights=setup["weights"], img_size=IMG, device="cpu").predict_files(paths)
+    assert got.images == [None] * len(paths) and got.paths == want.paths
+    assert sum(len(d) for d in want.xyxy) >= 8 and len(want.xyxy[-1]) == len(got.xyxy[-1]) == 0
+    for g, w in zip(got.xyxy, want.xyxy):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g[:, 5], w[:, 5])
+        np.testing.assert_allclose(g[:, :5], w[:, :5], rtol=REL, atol=1e-3)
+    got.paths, got.detections, got.images = got.paths[:-1], got.detections[:-1], got.images[:-1]
+    for im, path in zip(got.render(), got.paths):
+        assert im.shape == cv2.imread(path).shape
 
 
 def test_predict_files_and_pandas_match_jax(results):

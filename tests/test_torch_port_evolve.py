@@ -23,6 +23,7 @@ import flax.linen.normalization as fnorm
 import skyeye_tpu.cli.train as jax_train
 import skyeye_tpu.data.native as jax_native
 import skyeye_tpu.models.detector as jdet
+import skyeye_tpu_torch.data.native as port_native
 import skyeye_tpu.parallel as jax_parallel
 import skyeye_tpu.train.evolve as jax_evolve
 from skyeye_tpu.cli.export import export_torch
@@ -47,6 +48,16 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(saved)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _python_path():
+    """The port's loaders on JAX's Python path, as JAX's run here (its native
+    library switched off)."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(port_native, "ENABLED", False)
+    yield
+    mp.undo()
 
 
 def write_trainset(root: Path):

@@ -96,18 +96,21 @@ def test_imread_equals_cv2_and_image_size_equals_pil(tmp_path, name):
 
 @pytest.mark.parametrize("progressive", [False, True])
 def test_jpeg_size_equals_pil_and_decoding_names_the_roadmap(tmp_path, progressive):
-    """A baseline JPEG (PIL's writer) reads as cv2.imread reads it; a progressive
-    one raises, naming the roadmap item that will take it."""
+    """A baseline or progressive JPEG (PIL's writer) reads as cv2.imread reads
+    it; the same file marked arithmetic-coded raises, naming the roadmap item
+    that will take it."""
     path = str(tmp_path / "frame.jpg")
     rgb = np.random.RandomState(1).randint(0, 256, (61, 97, 3)).astype(np.uint8)
     Image.fromarray(rgb).save(path, quality=90, progressive=progressive)
     with Image.open(path) as im:
         assert iio.image_size(path) == im.size == (97, 61)
-    if progressive:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            iio.imread(path)
-    else:
-        np.testing.assert_array_equal(iio.imread(path), cv2.imread(path))
+    np.testing.assert_array_equal(iio.imread(path), cv2.imread(path))
+    data = bytearray(Path(path).read_bytes())
+    sof = data.index(b"\xff\xc2" if progressive else b"\xff\xc0")
+    data[sof + 1] = 0xCA if progressive else 0xC9  # SOF10 / SOF9: arithmetic coding
+    Path(path).write_bytes(bytes(data))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        iio.imread(path)
 
 
 def _png_bytes(tmp_path):
@@ -140,16 +143,20 @@ def test_broken_files_raise_where_pil_and_cv2_refuse_them(tmp_path):
 
 
 def test_interlaced_png_is_refused_by_name(tmp_path):
-    path = tmp_path / "adam7.png"
-    iio.imwrite_png(path, np.full((20, 24, 3), 7, np.uint8))
-    data = bytearray(path.read_bytes())
-    data[28] = 1  # IHDR's interlace method: Adam7 (PIL writes no interlaced PNG)
-    data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
-    path.write_bytes(bytes(data))
-    with Image.open(path) as im:
-        assert iio.image_size(path) == im.size
-    with pytest.raises(iio.ImageFormatError, match="Adam7"):
-        iio.imread(path)
+    """Adam7 (the port's writer; PIL and cv2 write none) reads as cv2.imread
+    reads it, for colour and gray, every filter type, and sizes whose later
+    passes are empty; its size as PIL's."""
+    rng = np.random.RandomState(3)
+    for h, w in ((1, 1), (2, 3), (7, 9), (20, 24), (37, 53)):
+        for filter_type in range(5):
+            for shape in ((h, w, 3), (h, w)):
+                path = tmp_path / "adam7.png"
+                iio.imwrite_png(path, rng.randint(0, 256, shape).astype(np.uint8), filter_type,
+                                interlace=True)
+                assert path.read_bytes()[28] == 1  # IHDR's interlace method: Adam7
+                np.testing.assert_array_equal(iio.imread(path), cv2.imread(str(path)))
+                with Image.open(path) as im:
+                    assert iio.image_size(path) == im.size
 
 
 def test_a_bad_filter_type_raises(tmp_path):

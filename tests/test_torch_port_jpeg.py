@@ -13,8 +13,11 @@ port repeats its integer paths. Tolerance 0 throughout:
 - the host C version, compiled here by the host C++ compiler (the file holds
   no device code) and bound as ``jpeg_library`` binds it, equals the plain
   versions pixel for pixel and byte for byte;
-- progressive files raise NotImplementedError naming the roadmap; truncated
-  and corrupt ones raise ``ImageFormatError``, in both versions.
+- progressive files (cv2's successive-approximation script, with and without
+  restart intervals, every sampling and gray) decode as cv2 decodes them, in
+  both versions; lossless, hierarchical, arithmetic-coded and 12-bit ones
+  raise NotImplementedError naming the roadmap; truncated and corrupt ones
+  raise ``ImageFormatError``, in both versions.
 """
 import ctypes
 import shutil
@@ -128,12 +131,25 @@ def test_imwrite_writes_what_cv2_imwrite_writes(tmp_path):
 
 
 def test_refusals(tmp_path):
+    """Lossless, hierarchical, arithmetic-coded and 12-bit frames, and a
+    progressive file that leaves low coefficients unfinished (libjpeg would
+    smooth its blocks), raise NotImplementedError naming item 13; truncated
+    files raise ImageFormatError."""
     im = _frame(np.random.RandomState(8), 40, 56)
     progressive = _cv2_jpeg(im, progressive=1)
+    sof = progressive.index(b"\xff\xc2")
+    for marker in (0xC3, 0xC5, 0xC9, 0xCA):
+        data = progressive[:sof + 1] + bytes([marker]) + progressive[sof + 2:]
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 13"):
+            jpeg.decode_plain(data)
+    twelve = progressive[:sof + 4] + bytes([12]) + progressive[sof + 5:]
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 13"):
-        jpeg.decode_plain(progressive)
+        jpeg.decode_plain(twelve)
+    unfinished = progressive[:_scan_starts(progressive)[3]] + b"\xff\xd9"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 13"):
+        jpeg.decode_plain(unfinished)
     path = tmp_path / "p.jpg"
-    path.write_bytes(progressive)
+    path.write_bytes(unfinished)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         imageio.imread(path)
     data = _cv2_jpeg(im)
@@ -143,6 +159,12 @@ def test_refusals(tmp_path):
         path.write_bytes(data[:cut])
         with pytest.raises(imageio.ImageFormatError):
             imageio.imread(path)
+
+
+def _scan_starts(data: bytes):
+    """Offsets of the SOS markers (0xFF is stuffed in entropy-coded data, so
+    0xFFDA is always a marker), where a file can be cut between scans."""
+    return [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
 
 
 @pytest.fixture(scope="module")
@@ -171,9 +193,11 @@ def test_c_codec_equals_the_plain_versions(c_codec, sampling):
             im = _frame(rng, *size, channels=1 if sampling == "gray" else 3)
             params = {} if sampling == "gray" else {"sampling_factor": SAMPLING[sampling]}
             for rst in (0, 3):
-                data = _cv2_jpeg(im, quality=quality, rst_interval=rst, **params)
-                np.testing.assert_array_equal(jpeg.decode(data, native=True),
-                                              jpeg.decode_plain(data))
+                for progressive in (0, 1):
+                    data = _cv2_jpeg(im, quality=quality, rst_interval=rst,
+                                     progressive=progressive, **params)
+                    np.testing.assert_array_equal(jpeg.decode(data, native=True),
+                                                  jpeg.decode_plain(data))
             if sampling in ("420", "gray"):  # what the encoder writes
                 assert jpeg.encode(im, quality, native=True) == jpeg.encode_plain(im, quality)
 

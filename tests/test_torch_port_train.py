@@ -40,6 +40,7 @@ import skyeye_tpu.cli.train as jax_train
 import skyeye_tpu.parallel as jax_parallel
 import skyeye_tpu.data.native as jax_native
 import skyeye_tpu.models.detector as jdet
+import skyeye_tpu_torch.data.native as port_native
 from skyeye_tpu.cli.export import export_torch
 from skyeye_tpu_torch import SkyEyeDetector
 from skyeye_tpu_torch.cli import train as port_train
@@ -62,6 +63,16 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(saved)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _python_path():
+    """The port's loaders on JAX's Python path, as JAX's run here (its native
+    library switched off); both native paths: ``test_torch_port_dataset.py``."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(port_native, "ENABLED", False)
+    yield
+    mp.undo()
 
 
 def _seeded_variables(module, seed):

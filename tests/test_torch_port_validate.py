@@ -12,7 +12,9 @@ and rect. Tolerances: per image the same detection count, and one to one the
 same class, the box within 1e-3 px and the score within 1e-5 (detections whose
 scores lie within float32 noise of each other may swap places); P, R, mAP@.5, mAP@.5:.95 and the
 per-class maps within 1e-4; the txt and JSON dumps at those tolerances; COCO
-AP and AP50 within 1e-4.
+AP and AP50 within 1e-4. At ``rect=False`` both also run on their native
+paths (JAX's C++ library, the port's ``data/native.py``), at the same
+tolerances.
 """
 import json
 import logging
@@ -29,6 +31,7 @@ from flax import traverse_util
 import skyeye_tpu.cli.validate as jax_validate
 import skyeye_tpu.data.native as jax_native
 import skyeye_tpu.models.detector as jdet
+import skyeye_tpu_torch.data.native as port_native
 from skyeye_tpu.api import SkyEyeDetector as JaxDetector
 from skyeye_tpu.cli.export import export_torch
 from skyeye_tpu_torch.cli import validate as port_validate
@@ -135,9 +138,12 @@ def bench(tmp_path_factory):
                 data=data)
 
 
-def _run_jax(bench, tmp_path_factory, **kw):
+def _run_jax(bench, tmp_path_factory, native=False, **kw):
+    """JAX's validate; ``native``: its loader's native path (where its library
+    loads) or, by default, its Python path."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(jax_native, "native_available", lambda: False)
+    if not native:
+        mp.setattr(jax_native, "native_available", lambda: False)
     seen, record = _recording(jax_validate)
     mp.setattr(jax_validate, "process_batch", record)
     save_dir = tmp_path_factory.mktemp("jax_val")
@@ -150,8 +156,9 @@ def _run_jax(bench, tmp_path_factory, **kw):
     return out, seen, save_dir if "model" in kw else save_dir / "exp"
 
 
-def _run_port(tmp_path_factory, data, **kw):
+def _run_port(tmp_path_factory, data, native=False, **kw):
     mp = pytest.MonkeyPatch()
+    mp.setattr(port_native, "ENABLED", native)
     seen, record = _recording(port_validate)
     mp.setattr(port_validate, "process_batch", record)
     save_dir = tmp_path_factory.mktemp("port_val")
@@ -214,6 +221,27 @@ def _hold(got, want):
     w_coco = json.loads((w_dir / "coco_eval.json").read_text())
     for key in ("AP", "AP50", "AP75", "AR"):
         assert abs(g_coco[key] - w_coco[key]) <= METRIC_TOL, key
+
+
+def test_default_validate_on_both_native_paths_matches_jax(bench, tmp_path_factory, monkeypatch):
+    """The CLIs' default, ``rect=False``: both loaders decode and letterbox in
+    their native prep (no INTER_AREA pre-resize), one call a batch."""
+    calls = {"jax": 0, "port": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(jax_native, "prep_batch", counted("jax", jax_native.prep_batch))
+    monkeypatch.setattr(port_native, "prep_batch", counted("port", port_native.prep_batch))
+    want = _run_jax(bench, tmp_path_factory, native=True, rect=False,
+                    model=(bench["module"], bench["variables"], bench["module"].config))
+    got = _run_port(tmp_path_factory, bench["data"], native=True, rect=False,
+                    model=bench["port_model"])
+    assert calls["jax"] == calls["port"] == -(-len(SHAPES) // BATCH)
+    _hold(got, want)
 
 
 @pytest.mark.parametrize("rect", [False, True], ids=["square", "rect"])
